@@ -1,0 +1,1 @@
+"""compose of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""estimate of the PyTorch port (see the package docstring)."""

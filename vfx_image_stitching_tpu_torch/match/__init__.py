@@ -1,0 +1,1 @@
+"""match of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""sift of the PyTorch port (see the package docstring)."""
