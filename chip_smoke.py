@@ -6,12 +6,18 @@ Phases, one JSON line each: card identity; kernel build; the SIFT
 extraction of an 18-image 384x512 synthetic chain with its per-octave
 stage counts beside the capacities and the audited maxima; each CUDA
 kernel against its plain PyTorch version on the inputs that extraction
-gave it at octave 0 of the first image; then the end-to-end stitch of the
+gave it at octave 0 of the first image (the v1 orientation kernel on the
+default one's; the descriptor-histogram kernel through its route,
+``compute_descriptors_histogram``, on the descriptor stage's keypoints,
+also held against the stitch's GEMM route); the two descriptor routes
+side by side (``descriptor_ab``); then the end-to-end stitch of the
 chain (one warm-up, timed runs, launch counts, a profiled run, a
-CUDA-vs-CPU check on the first four images).  The line before the last is
-the kernel table; the last line is ``{"ok": true, "device": {...}}``.  Any
-failed check raises, and the script then exits non-zero; without CUDA it
-exits non-zero at once.
+CUDA-vs-CPU check on the first four images, and those four again with
+``VFX_ORIENT_V2=0``).  Each path's run must launch its kernels and no
+other (``PATHS``), and each kernel row reports the launches of its
+path's run.  The line before the last is the kernel table; the last line
+is ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
+script then exits non-zero; without CUDA it exits non-zero at once.
 
 The synthetic chain helpers (:func:`make_scene`, :func:`synth_chain`) are
 numpy-only and also feed the CPU tests.
@@ -111,14 +117,33 @@ AUDITED = dict(cand=(2435, 738, 211, 67), loc=(1478, 430, 122, 50),
                oriented=(1790, 466, 154, 67), desc_big=(518, 148, 53, 20),
                final=1900)
 KERNEL_SITES = (
-    # (module that calls the wrapper, wrapper name)
+    # (module that calls the function, function name)
     ("vfx_image_stitching_tpu_torch.models.sift.kernels",
      "localize_newton_resident"),
     ("vfx_image_stitching_tpu_torch.models.sift.orientation",
      "orientation_histograms"),
     ("vfx_image_stitching_tpu_torch.models.sift.descriptor",
      "pair_window_gather"),
+    # the descriptor stage's inputs, for the histogram route (K5)
+    ("vfx_image_stitching_tpu_torch.models.sift.extract",
+     "compute_descriptors_bucketed"),
 )
+# The kernels each path must launch; every other kernel must not launch
+# in that path's run.  Each kernel row reports its launches from the run
+# of the first path listed here that launches it (KERNEL_PATH).
+PATHS = {
+    "stitch": ("localize_newton_resident", "orientation_histograms",
+               "pair_window_gather"),
+    "orient_v1": ("localize_newton_resident", "orientation_histograms_v1",
+                  "pair_window_gather"),
+    "descriptor_histogram": ("descriptor_histograms",),
+}
+KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
+# float operations of the descriptor-histogram kernel per masked sample:
+# rotation 6, two divisions, two offsets, weight 6 (exp counted once),
+# orientation bin 3, three floors, three fractions, four interpolation
+# weights, 12 products and 8 sums into the bins
+K5_OPS_PER_SAMPLE = 49
 
 
 def emit(obj) -> None:
@@ -127,11 +152,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of ``fn``: the CUDA kernels it launches,
-    summed from ``torch.profiler`` over ``reps`` calls.  (CUDA events
-    around a call would also count the wrapper's host work, which at
-    these sizes is longer than the kernels.)"""
+def device_profile(fn, reps: int = 20, warmup: int = 3):
+    """Device time (ms) and device kernels of one call of ``fn``: the
+    CUDA kernels it launches, summed from ``torch.profiler`` over
+    ``reps`` calls.  (CUDA events around a call would also count the
+    wrapper's host work, which at these sizes is longer than the
+    kernels.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -142,11 +168,24 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in events)
     if us <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return us / reps / 1e3
+    return us / reps / 1e3, sum(e.count for e in events) / reps
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    return device_profile(fn, reps, warmup)[0]
+
+
+def check_launches(path: str, launches: dict) -> None:
+    """Every kernel of ``path`` launched in its run, and no other."""
+    want = PATHS[path]
+    if any(launches[n] <= 0 for n in want) or any(
+            v != 0 for n, v in launches.items() if n not in want):
+        raise AssertionError(f"{path}: launches {launches}, expected only {want}")
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -155,13 +194,28 @@ def bound_ms(n_bytes: float, n_flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def distinct_pixels(stack_shape, layer, rows, cols, mask) -> int:
+    """Distinct (layer, row, col) pixels of an (L, H, W) stack that the
+    (K, S, S) sample masks of windows at ``rows`` x ``cols`` (K, S) reach:
+    what a kernel must read once, however often windows overlap."""
+    import torch
+
+    _n_l, h, w = stack_shape
+    hit = torch.zeros(tuple(stack_shape), dtype=torch.bool, device=mask.device)
+    idx = torch.broadcast_tensors(
+        layer.long()[:, None, None], rows.long()[:, :, None],
+        cols.long()[:, None, :])
+    hit[tuple(i[mask] for i in idx)] = True
+    return int(hit.sum())
+
+
 def path_inputs(folder: str, dev) -> dict:
     """Extract every image of the chain as the stitch does (decode,
     cylindrical projection, gray, SIFT), recording the arguments of the
-    first octave-0 call of each kernel wrapper on image 0: the kernels
-    are then checked and timed on exactly the tensors the path gives them
-    (live-chunk rows, invalid ones included).  Also returns the chain's
-    per-octave stage counts."""
+    first octave-0 call of each kernel wrapper, and of the descriptor
+    stage, on image 0: the kernels are then checked and timed on exactly
+    the tensors the path gives them (live-chunk rows, invalid ones
+    included).  Also returns the chain's per-octave stage counts."""
     import importlib
 
     import torch
@@ -187,11 +241,11 @@ def path_inputs(folder: str, dev) -> dict:
     saved = [(mod, n, getattr(mod, n)) for mod, n in saved]
 
     def recorder(name, fn):
-        def call(*args):
+        def call(*args, **kwargs):
             key = (name, args[5]) if name == "pair_window_gather" else name
             if key not in calls and tuple(args[0].shape[-2:]) == octave0:
-                calls[key] = args
-            return fn(*args)
+                calls[key] = (args, kwargs)
+            return fn(*args, **kwargs)
         return call
 
     try:
@@ -218,8 +272,11 @@ def path_inputs(folder: str, dev) -> dict:
     return dict(cfg=cfg, calls=calls)
 
 
-def newton_iterations(dog, layer, y, x, cv, cfg) -> int:
-    """Newton steps this run's candidates take (each reads one cube)."""
+def newton_iterations(dog, layer, y, x, cv, cfg):
+    """Newton steps this run's candidates take (each reads one 3x3x3
+    cube), and the distinct DoG values those cubes cover."""
+    import torch
+
     from vfx_image_stitching_tpu_torch.models.sift.localize import (
         _init_state, newton_step,
     )
@@ -227,15 +284,24 @@ def newton_iterations(dog, layer, y, x, cv, cfg) -> int:
     st = _init_state(layer, y, x)
     st["rejected"] = ~cv
     total = 0
+    hit = torch.zeros(dog.shape, dtype=torch.bool, device=dog.device)
+    d = torch.arange(-1, 2, device=dog.device)
     for _ in range(cfg.max_localize_iters):
-        total += int((~(st["converged"] | st["rejected"])).sum())
+        active = ~(st["converged"] | st["rejected"])
+        total += int(active.sum())
+        lc, yc, xc = (st[n][active].long() for n in ("l", "y", "x"))
+        hit[lc[:, None, None, None] + d[:, None, None],
+            yc[:, None, None, None] + d[:, None],
+            xc[:, None, None, None] + d] = True
         st = newton_step(dog, st, cfg)
-    return total
+    return total, int(hit.sum())
 
 
-def check_kernels(inp: dict) -> list:
+def check_kernels(inp: dict):
     """Each kernel against its plain version on the card, with times, on
-    the inputs the path gave it at octave 0 of image 0."""
+    the inputs the path gave it at octave 0 of image 0 (K4 on K2's; K5 on
+    the histogram route's inputs for the descriptor stage's keypoints).
+    Returns the kernel rows and the launches of the histogram route's run."""
     import torch
 
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
@@ -244,7 +310,7 @@ def check_kernels(inp: dict) -> list:
     rows = []
 
     # K1: integer lanes bit-exact
-    k1_args = calls["localize_newton_resident"]
+    k1_args = calls["localize_newton_resident"][0]
     dog, layer, y, x, cv = k1_args[:5]
     got = K.localize_newton_resident(*k1_args)
     want = K.localize_newton_plain(*k1_args)
@@ -253,8 +319,8 @@ def check_kernels(inp: dict) -> list:
         raise AssertionError(
             f"K1 integer lanes differ on {int((got != want).any(1).sum())} rows")
     n_k = layer.shape[0]
-    iters = newton_iterations(dog, layer, y, x, cv, cfg)
-    b, by = bound_ms(n_k * 4 * 4 + n_k * 8 * 4 + iters * 27 * 4, iters * 122)
+    iters, cube_values = newton_iterations(dog, layer, y, x, cv, cfg)
+    b, by = bound_ms(n_k * 4 * 4 + n_k * 8 * 4 + cube_values * 4, iters * 122)
     rows.append(dict(
         name="localize_newton_resident", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
@@ -264,12 +330,13 @@ def check_kernels(inp: dict) -> list:
         plain_ms=cuda_ms(lambda: K.localize_newton_plain(*k1_args), reps=5),
         bound_ms=b, bound_by=by, library_ms=None,
         shape=dict(dog=list(dog.shape), candidates=n_k,
-                   valid=int(cv.sum()), newton_steps=iters),
+                   valid=int(cv.sum()), newton_steps=iters,
+                   distinct_dog_values=cube_values),
     ))
     emit(dict(phase="kernel", **rows[-1]))
 
     # K2: rtol 2e-5, atol 2e-3
-    k2_args = calls["orientation_histograms"]
+    k2_args = calls["orientation_histograms"][0]
     mag, ang, lyr, cy, cx, radius, wf, valid, half, nb = k2_args
     got = K.orientation_histograms(*k2_args)
     want = K.orientation_histograms_plain(*k2_args)
@@ -284,9 +351,11 @@ def check_kernels(inp: dict) -> list:
     cc = sx[:, None] + rows_w
     in_y = ((rr - cy[:, None]).abs() <= radius[:, None]) & (rr >= 1) & (rr <= h - 2)
     in_x = ((cc - cx[:, None]).abs() <= radius[:, None]) & (cc >= 1) & (cc <= w - 2)
-    pixels = int((in_y.sum(1) * in_x.sum(1) * valid).sum())
+    mask = in_y[:, :, None] & in_x[:, None, :] & valid[:, None, None]
+    pixels = int(mask.sum())
+    distinct = distinct_pixels(mag.shape, lyr, rr, cc, mask)
     n_k = lyr.shape[0]
-    b, by = bound_ms(pixels * 8 + n_k * 6 * 4 + n_k * nb * 4, pixels * 10)
+    b, by = bound_ms(distinct * 8 + n_k * 6 * 4 + n_k * nb * 4, pixels * 10)
     rows.append(dict(
         name="orientation_histograms", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
@@ -296,13 +365,13 @@ def check_kernels(inp: dict) -> list:
         plain_ms=cuda_ms(lambda: K.orientation_histograms_plain(*k2_args), reps=5),
         bound_ms=b, bound_by=by, library_ms=None,
         shape=dict(stack=list(mag.shape), rows=n_k, valid=int(valid.sum()),
-                   window=s, masked_pixels=pixels),
+                   window=s, masked_pixels=pixels, distinct_pixels=distinct),
     ))
     emit(dict(phase="kernel", **rows[-1]))
 
     # K3: bit-exact, both window sizes, summed
     k3 = {}
-    for (_name, half_cap), args in sorted(
+    for (_name, half_cap), (args, _kw) in sorted(
             (k, v) for k, v in calls.items() if k[0] == "pair_window_gather"):
         mag, ang, wl = args[:3]
         got = K.pair_window_gather(*args)
@@ -315,13 +384,18 @@ def check_kernels(inp: dict) -> list:
         r_idx = (want[2][:, None] + torch.arange(s, device=mag.device)).long()
         c_idx = (want[3][:, None] + torch.arange(s, device=mag.device)).long()
         l_idx = wl.long()[:, None, None]
+        inside = ((r_idx < mag.shape[-2])[:, :, None]
+                  & (c_idx < mag.shape[-1])[:, None, :])
+        distinct = distinct_pixels(mag.shape, wl, r_idx, c_idx, inside)
         k3[f"{s}x{s}"] = dict(
-            rows=int(wl.shape[0]),
+            rows=int(wl.shape[0]), distinct_pixels=distinct,
             ms=cuda_ms(lambda: K.pair_window_gather(*args)),
             plain_ms=cuda_ms(lambda: K.pair_window_gather_plain(*args), reps=5),
             library_ms=cuda_ms(lambda: ma[l_idx, r_idx[:, :, None],
                                           c_idx[:, None, :]]),
-            bytes=4 * int(wl.shape[0]) * s * s * 4 + int(wl.shape[0]) * 3 * 4,
+            # both stacks read once, both windows written once
+            bytes=distinct * 8 + 2 * int(wl.shape[0]) * s * s * 4
+            + int(wl.shape[0]) * 3 * 4,
         )
     if len(k3) != 2:
         raise AssertionError(f"K3 ran for {sorted(k3)} windows, not both buckets")
@@ -338,7 +412,136 @@ def check_kernels(inp: dict) -> list:
         shape=dict(buckets=k3, stack=list(mag.shape)),
     ))
     emit(dict(phase="kernel", **rows[-1]))
-    return rows
+
+    # K4 on K2's inputs (so K2's row's bound and shape): rtol 2e-5,
+    # atol 2e-3, repeated launches bit-identical
+    got = K.orientation_histograms_v1(*k2_args)
+    want = K.orientation_histograms_plain(*k2_args)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
+    if not torch.equal(got, K.orientation_histograms_v1(*k2_args)):
+        raise AssertionError("K4: repeated launches differ")
+    rows.append(dict(
+        rows[1], name="orientation_histograms_v1",
+        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:246",
+        max_abs_err=float((got - want).abs().max()) if got.numel() else 0.0,
+        ms=cuda_ms(lambda: K.orientation_histograms_v1(*k2_args)),
+        plain_ms=cuda_ms(lambda: K.orientation_histograms_plain(*k2_args), reps=5),
+    ))
+    emit(dict(phase="kernel", **rows[-1]))
+
+    row, k5_launches = check_descriptor_histograms(calls)
+    rows.append(row)
+    emit(dict(phase="kernel", **row))
+    return rows, k5_launches
+
+
+def check_descriptor_histograms(calls: dict):
+    """K5 on the descriptor stage's octave-0 keypoints of image 0: the
+    histogram route once with the launch counts at 0 (its path run), the
+    raw histograms against the plain version (rtol 1e-5, atol 1e-3),
+    repeated launches bit-identical, and the final descriptors within 1
+    LSB of the bucketed GEMM route's on under 2% of valid entries."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import descriptor as D
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    args, kw = calls["compute_descriptors_bucketed"]
+    mag, ang, kps, octave, dcfg = args
+    K.reset_launch_counts()
+    desc = D.compute_descriptors_histogram(mag, ang, kps, octave, dcfg,
+                                           layer_base=kw["layer_base"])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_launches("descriptor_histogram", launches)
+
+    k5_args = D.histogram_inputs(mag, ang, kps, dcfg, kw["layer_base"])
+    got = K.descriptor_histograms(*k5_args)
+    want = K.descriptor_histograms_plain(*k5_args)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    if not torch.equal(got, K.descriptor_histograms(*k5_args)):
+        raise AssertionError("K5: repeated launches differ")
+    gemm = D.compute_descriptors_bucketed(*args, **kw)[0]
+    v = kps.valid
+    diff = (desc[v] - gemm[v]).abs()
+    lsb_share = float((diff > 0).float().mean())
+    if float(diff.max()) > 1.0 or lsb_share >= 0.02:
+        raise AssertionError(f"K5 route vs GEMM: max {float(diff.max())}, "
+                             f"share {lsb_share}")
+
+    (mag_s, ang_s, lyr, py, px, half_w, cos_a, sin_a, hist_w, angle, valid,
+     half_cap, nb, ww) = k5_args
+    h, w = mag_s.shape[-2:]
+    windows = K.pair_window_gather_plain(mag_s, ang_s, lyr, py, px, half_cap)
+    _hist, mask = K.trilinear_histograms(
+        *windows, py, px, half_w, cos_a, sin_a, hist_w, angle, valid, h, w,
+        nb, ww, fused_offset=True)
+    samples = int(mask.sum())
+    rng = torch.arange(2 * half_cap + 1, device=mag_s.device)
+    distinct = distinct_pixels(mag_s.shape, lyr, windows[2][:, None] + rng,
+                               windows[3][:, None] + rng, mask)
+    n_k = lyr.shape[0]
+    b, by = bound_ms(distinct * 8 + n_k * 9 * 4 + n_k * ww * ww * nb * 4,
+                     samples * K5_OPS_PER_SAMPLE)
+    return dict(
+        name="descriptor_histograms", route="cuda",
+        source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
+        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:443",
+        launches=0, max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(lambda: K.descriptor_histograms(*k5_args)),
+        plain_ms=cuda_ms(lambda: K.descriptor_histograms_plain(*k5_args), reps=5),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=dict(stack=list(mag_s.shape), rows=n_k, valid=int(valid.sum()),
+                   half_cap=half_cap, masked_samples=samples,
+                   distinct_pixels=distinct,
+                   max_rel_err=float(((got - want).abs()
+                                      / want.abs().clamp(min=1.0)).max()),
+                   vs_gemm_max_lsb=float(diff.max()),
+                   vs_gemm_lsb_share=lsb_share),
+    ), launches
+
+
+def descriptor_ab(calls: dict, reps: int = 10) -> dict:
+    """The descriptor stage's two routes on the same octave-0 keypoints:
+    the histogram route (K5) and the bucketed window gather + GEMM route
+    the stitch runs.  Device ms and device kernels per call (profiler),
+    host wall ms per call (median, the two routes in turns), launches of
+    the repository's kernels per call."""
+    import time
+
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import descriptor as D
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    args, kw = calls["compute_descriptors_bucketed"]
+    mag, ang, kps, octave, dcfg = args
+    routes = {
+        "histogram": lambda: D.compute_descriptors_histogram(
+            mag, ang, kps, octave, dcfg, layer_base=kw["layer_base"]),
+        "bucketed_gemm": lambda: D.compute_descriptors_bucketed(*args, **kw),
+    }
+    out = {}
+    for name, fn in routes.items():
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        ms, kernels = device_profile(fn, reps=5)
+        out[name] = dict(device_ms=ms, device_kernels=kernels,
+                         launches=launches, wall_ms=[])
+    for i in range(reps):
+        for name in (("histogram", "bucketed_gemm") if i % 2 == 0
+                     else ("bucketed_gemm", "histogram")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[name]()
+            torch.cuda.synchronize()
+            out[name]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+    for r in out.values():
+        r["wall_ms_median"] = float(np.median(r["wall_ms"]))
+    return dict(phase="descriptor_ab", keypoints=int(kps.valid.sum()),
+                rows=int(kps.capacity), **out)
 
 
 def run_stitch(folder: str, device: str):
@@ -406,8 +609,7 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
     first_s = time.time() - t0
     launches = dict(K.LAUNCHES)
     check_result(res, N_IMAGES)
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    check_launches("stitch", launches)
 
     runs = []
     for _ in range(timed_runs):
@@ -454,6 +656,36 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
               cpu_s=t2 - t1, cuda_shifts=gpu.shifts, cpu_shifts=cpu.shifts))
     if not same:
         raise AssertionError("CUDA and CPU runs of the first 4 images differ")
+    out["orient_v1"] = orient_v1(sub, gpu)
+    return out
+
+
+def orient_v1(folder: str, default) -> dict:
+    """The stitch of ``folder`` on the card with ``VFX_ORIENT_V2=0`` (the
+    v1 orientation kernel, K4): every pair matched, K4 and not K2
+    launched, shifts within 1 px of the ``default`` run's."""
+    import time
+    from unittest import mock
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    with mock.patch.dict(os.environ, VFX_ORIENT_V2="0"):
+        K.reset_launch_counts()
+        t0 = time.time()
+        res = run_stitch(folder, "cuda")
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+    n = len(default.shifts) + 1
+    check_result(res, n)
+    check_launches("orient_v1", launches)
+    diff = max(abs(a - b) for s, t in zip(res.shifts, default.shifts)
+               for a, b in zip(s, t))
+    out = dict(phase="orient_v1", images=n, seconds=wall, launches=launches,
+               max_shift_diff_px=diff, shifts=res.shifts,
+               default_shifts=default.shifts, pairs_equal=res.pairs == default.pairs)
+    emit(out)
+    if diff > 1.0:
+        raise AssertionError(f"v1 shifts differ from the default's by {diff} px")
     return out
 
 
@@ -510,10 +742,14 @@ def main() -> int:
         folder = os.path.join(work, "chain18")
         os.makedirs(folder)
         synth_chain(folder, N_IMAGES, IMG_H, IMG_W, SEED, FOCAL, **SCENE)
-        rows = check_kernels(path_inputs(folder, dev))
+        inp = path_inputs(folder, dev)
+        rows, k5_launches = check_kernels(inp)
+        emit(descriptor_ab(inp["calls"]))
         e2e = end_to_end(work, folder)
+    by_path = dict(stitch=e2e["launches"], orient_v1=e2e["orient_v1"]["launches"],
+                   descriptor_histogram=k5_launches)
     for row in rows:
-        row["launches"] = e2e["launches"][row["name"]]
+        row["launches"] = by_path[KERNEL_PATH[row["name"]]][row["name"]]
         row.pop("shape")
     print(smi)
     emit(dict(kernels=rows))

@@ -5,7 +5,9 @@ JAX nor the test conftest, so on the GPU machine it runs as
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Contracts: the Newton kernel's integer lanes and the window gather bit for
-bit; orientation histograms to rtol 2e-5 / atol 2e-3 (reduction order).
+bit; orientation histograms (both kernels) to rtol 2e-5 / atol 2e-3 and
+raw descriptor histograms to rtol 1e-5 / atol 1e-3 (reduction order),
+each bit-identical from launch to launch.
 """
 
 import numpy as np
@@ -72,6 +74,58 @@ def test_orientation_histograms_kernel_matches_plain(dev):
     torch.testing.assert_close(got, K.orientation_histograms_plain(*args),
                                rtol=2e-5, atol=2e-3)
     assert torch.equal(got, K.orientation_histograms(*args))  # deterministic
+
+
+def test_orientation_histograms_v1_kernel_matches_plain(dev):
+    """The warp-per-keypoint kernel against the plain version, radius
+    <= half, centers inside and outside the fields."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    rng = np.random.default_rng(4)
+    k, half, h, w = 301, 20, 150, 170
+    mag = torch.as_tensor((rng.random((3, h, w)) * 100).astype(np.float32), device=dev)
+    ang = torch.as_tensor((rng.random((3, h, w)) * 360).astype(np.float32), device=dev)
+    ints = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
+            for lo, hi in ((0, 3), (-5, h + 5), (-5, w + 5), (0, half + 1))]
+    wf = torch.as_tensor((-0.5 / (rng.random(k) * 4 + 1) ** 2).astype(np.float32),
+                         device=dev)
+    valid = torch.as_tensor(rng.random(k) > 0.2, device=dev)
+    args = (mag, ang, *ints, wf, valid, half, 36)
+    n0 = K.LAUNCHES["orientation_histograms_v1"]
+    got = K.orientation_histograms_v1(*args)
+    assert K.LAUNCHES["orientation_histograms_v1"] == n0 + 1
+    torch.testing.assert_close(got, K.orientation_histograms_plain(*args),
+                               rtol=2e-5, atol=2e-3)
+    assert torch.equal(got, K.orientation_histograms_v1(*args))  # deterministic
+    assert not got[~valid].any()
+
+
+@pytest.mark.parametrize("half_cap", [28, 44])
+def test_descriptor_histograms_kernel_matches_plain(dev, half_cap):
+    """Raw trilinear histograms against the plain version (rtol 1e-5,
+    atol 1e-3: summation order), repeated launches bit-identical, invalid
+    rows zero."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    rng = np.random.default_rng(half_cap)
+    k, h, w = 257, 120, 160
+    mag, ang = (torch.as_tensor(rng.random((3, h, w)).astype(np.float32) * s,
+                                device=dev) for s in (100, 360))
+    ints = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
+            for lo, hi in ((0, 3), (-5, h + 5), (-5, w + 5), (0, half_cap + 1))]
+    hist_width = ints[3].to(torch.float32) / 3.5355 + 0.5
+    theta = torch.as_tensor(rng.random(k).astype(np.float32) * 360, device=dev)
+    rad = torch.deg2rad(theta)
+    valid = torch.as_tensor(rng.random(k) > 0.2, device=dev)
+    args = (mag, ang, *ints, torch.cos(rad), torch.sin(rad), hist_width, theta,
+            valid, half_cap)
+    n0 = K.LAUNCHES["descriptor_histograms"]
+    got = K.descriptor_histograms(*args)
+    assert K.LAUNCHES["descriptor_histograms"] == n0 + 1
+    torch.testing.assert_close(got, K.descriptor_histograms_plain(*args),
+                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, K.descriptor_histograms(*args))  # deterministic
+    assert not got[~valid].any() and (got[valid].amax(1) > 0).sum() > k // 2
 
 
 def test_pair_window_gather_kernel_matches_plain(dev):

@@ -194,6 +194,158 @@ __global__ void __launch_bounds__(K3_THREADS) pair_gather_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: raw orientation histograms (replaces orientation_histograms, v1).
+// One warp per keypoint, K4_WARPS keypoints per block.  A lane walks the
+// samples of (clamped window) x (radius box) x (1..h-2, 1..w-2) with stride
+// 32 into its own column of a shared (bins x 32) array; each bin is then
+// summed across lanes by an xor butterfly, which leaves the same bits in
+// every lane (float addition is commutative).
+// ---------------------------------------------------------------------------
+constexpr int K4_WARPS = 8;
+
+__global__ void __launch_bounds__(K4_WARPS * 32) orientation_v1_kernel(
+    const float* __restrict__ mag, const float* __restrict__ ang, int h, int w,
+    const int* __restrict__ layer, const int* __restrict__ cys,
+    const int* __restrict__ cxs, const int* __restrict__ radii,
+    const float* __restrict__ wfs, const int* __restrict__ valid, int k,
+    int half, int num_bins, float* __restrict__ out) {
+  __shared__ float part[K4_WARPS][K2_MAX_BINS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * K4_WARPS + warp;
+  if (i >= k) return;  // whole warps only; no block-wide barrier below
+  float(*acc)[32] = part[warp];
+  for (int b = 0; b < num_bins; ++b) acc[b][lane] = 0.0f;
+
+  if (valid[i]) {
+    const int s = 2 * half + 1;
+    const int cy = cys[i], cx = cxs[i], rad = radii[i];
+    const float wf = wfs[i];
+    const int sy = clampi(cy - half, 0, max(h, s) - s);
+    const int sx = clampi(cx - half, 0, max(w, s) - s);
+    const int r_lo = max(max(sy, cy - rad), 1);
+    const int r_hi = min(min(sy + s - 1, cy + rad), h - 2);
+    const int c_lo = max(max(sx, cx - rad), 1);
+    const int c_hi = min(min(sx + s - 1, cx + rad), w - 2);
+    const int nc = c_hi - c_lo + 1;
+    const int n = (r_hi >= r_lo && nc > 0) ? (r_hi - r_lo + 1) * nc : 0;
+    const size_t plane = (size_t)layer[i] * h * w;
+    const float bin_scale = (float)(num_bins / 360.0);
+    for (int p = lane; p < n; p += 32) {
+      const int row = r_lo + p / nc;
+      const int col = c_lo + p % nc;
+      const int dy = row - cy, dx = col - cx;
+      const size_t off = plane + (size_t)row * w + col;
+      const float contrib = expf(wf * (float)(dy * dy + dx * dx)) * mag[off];
+      int bin = __float2int_rn(ang[off] * bin_scale) % num_bins;
+      if (bin < 0) bin += num_bins;
+      acc[bin][lane] += contrib;
+    }
+  }
+  for (int b = 0; b < num_bins; ++b) {
+    float v = acc[b][lane];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+    if (lane == (b & 31)) out[(size_t)i * num_bins + b] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: raw trilinear descriptor histograms (replaces descriptor_histograms).
+// One block per keypoint.  Thread t walks the samples of (clamped S x S
+// window) x (|dy|, |dx| <= half_w) x (1..h-2, 1..w-2) with stride K5_THREADS
+// and adds each in-bin sample's <= 8 trilinear terms (inner ww x ww cells
+// only) to its own column of a shared (n_out x K5_THREADS) array; the
+// columns are then added in a fixed pairwise tree.  Per sample the floats
+// are those of the plain version, in its order.
+// ---------------------------------------------------------------------------
+constexpr int K5_THREADS = 128;
+constexpr int K5_MAX_OUT = 128;
+
+__global__ void __launch_bounds__(K5_THREADS) descriptor_kernel(
+    const float* __restrict__ mag, const float* __restrict__ ang, int h, int w,
+    const int* __restrict__ layer, const int* __restrict__ pys,
+    const int* __restrict__ pxs, const int* __restrict__ half_ws,
+    const float* __restrict__ coss, const float* __restrict__ sins,
+    const float* __restrict__ hist_ws, const float* __restrict__ angles,
+    const int* __restrict__ valid, int half_cap, int num_bins, int ww,
+    float* __restrict__ out) {
+  extern __shared__ float part[];  // part[bin * K5_THREADS + thread]
+  const int i = blockIdx.x;
+  const int t = threadIdx.x;
+  const int n_out = ww * ww * num_bins;
+  for (int b = 0; b < n_out; ++b) part[b * K5_THREADS + t] = 0.0f;
+
+  if (valid[i]) {
+    const int s = 2 * half_cap + 1;
+    const int py = pys[i], px = pxs[i], hw = half_ws[i];
+    const int sy = clampi(py - half_cap, 0, max(h, s) - s);
+    const int sx = clampi(px - half_cap, 0, max(w, s) - s);
+    const int r_lo = max(max(sy, py - hw), 1);
+    const int r_hi = min(min(sy + s - 1, py + hw), h - 2);
+    const int c_lo = max(max(sx, px - hw), 1);
+    const int c_hi = min(min(sx + s - 1, px + hw), w - 2);
+    const int nc = c_hi - c_lo + 1;
+    const int n = (r_hi >= r_lo && nc > 0) ? (r_hi - r_lo + 1) * nc : 0;
+    const float cos_a = coss[i], sin_a = sins[i], hwid = hist_ws[i];
+    const float angle = angles[i];
+    const float wwf = (float)ww, nbf = (float)num_bins;
+    const float offset = (float)(0.5 * ww - 0.5);
+    const float weight_mul = (float)(-0.5 / ((0.5 * ww) * (0.5 * ww)));
+    const float bin_scale = (float)(num_bins / 360.0);
+    const size_t plane = (size_t)layer[i] * h * w;
+    for (int p = t; p < n; p += K5_THREADS) {
+      const int row = r_lo + p / nc;
+      const int col = c_lo + p % nc;
+      const float ys = (float)(row - py), xs = (float)(col - px);
+      const float r_rot = xs * sin_a + ys * cos_a;
+      const float c_rot = xs * cos_a - ys * sin_a;
+      const float rq = r_rot / hwid, cq = c_rot / hwid;
+      const float r_bin = rq + offset, c_bin = cq + offset;
+      if (!(r_bin > -1.0f && r_bin < wwf && c_bin > -1.0f && c_bin < wwf))
+        continue;
+      const size_t off = plane + (size_t)row * w + col;
+      const float wm = expf(weight_mul * (rq * rq + cq * cq)) * mag[off];
+      // floor-style mod of a float, as torch.remainder / jnp.mod
+      float ob = fmodf((ang[off] - angle) * bin_scale, nbf);
+      if (ob < 0.0f) ob += nbf;
+      const int r0 = (int)floorf(r_bin), c0 = (int)floorf(c_bin);
+      int o0 = (int)floorf(ob) % num_bins;
+      if (o0 < 0) o0 += num_bins;
+      const int o1 = (o0 + 1) % num_bins;
+      const float rf = r_bin - (float)r0;
+      const float cf = c_bin - (float)c0;
+      const float of = ob - (float)o0;
+      const float c1 = wm * rf;
+      const float wr[2] = {wm - c1, c1};
+      const float wc[2] = {1.0f - cf, cf};
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int r = r0 + a;  // inner row r + 1 of the padded (ww+2) grid
+        if (r < 0 || r >= ww) continue;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int c = c0 + b;
+          if (c < 0 || c >= ww) continue;
+          const float v = wr[a] * wc[b];
+          float* cell = part + (size_t)((r * ww + c) * num_bins) * K5_THREADS + t;
+          cell[o0 * K5_THREADS] += v * (1.0f - of);
+          cell[o1 * K5_THREADS] += v * of;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int stride = K5_THREADS / 2; stride > 0; stride >>= 1) {
+    if (t < stride)
+      for (int b = 0; b < n_out; ++b)
+        part[b * K5_THREADS + t] += part[b * K5_THREADS + t + stride];
+    __syncthreads();
+  }
+  for (int b = t; b < n_out; b += K5_THREADS)
+    out[(size_t)i * n_out + b] = part[b * K5_THREADS];
+}
+
 }  // namespace
 
 extern "C" {
@@ -229,6 +381,42 @@ int sift_pair_window_gather(const void* mag, const void* ang, int h, int w,
   pair_gather_kernel<<<k, K3_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)mag, (const float*)ang, h, w, (const int*)layer,
       (const int*)sy, (const int*)sx, s, (float*)magw, (float*)angw);
+  return (int)cudaGetLastError();
+}
+
+int sift_orientation_histograms_v1(const void* mag, const void* ang, int h,
+                                   int w, const void* layer, const void* cy,
+                                   const void* cx, const void* radius,
+                                   const void* wf, const void* valid, int k,
+                                   int half, int num_bins, void* out,
+                                   void* stream) {
+  if (num_bins < 1 || num_bins > K2_MAX_BINS) return (int)cudaErrorInvalidValue;
+  orientation_v1_kernel<<<(k + K4_WARPS - 1) / K4_WARPS, K4_WARPS * 32, 0,
+                          (cudaStream_t)stream>>>(
+      (const float*)mag, (const float*)ang, h, w, (const int*)layer,
+      (const int*)cy, (const int*)cx, (const int*)radius, (const float*)wf,
+      (const int*)valid, k, half, num_bins, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+int sift_descriptor_histograms(const void* mag, const void* ang, int h, int w,
+                               const void* layer, const void* py, const void* px,
+                               const void* half_w, const void* cos_a,
+                               const void* sin_a, const void* hist_width,
+                               const void* angle, const void* valid, int k,
+                               int half_cap, int num_bins, int ww, void* out,
+                               void* stream) {
+  const int n_out = ww * ww * num_bins;
+  if (num_bins < 1 || ww < 1 || n_out > K5_MAX_OUT) return (int)cudaErrorInvalidValue;
+  const int smem = n_out * K5_THREADS * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      descriptor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  descriptor_kernel<<<k, K5_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)mag, (const float*)ang, h, w, (const int*)layer,
+      (const int*)py, (const int*)px, (const int*)half_w, (const float*)cos_a,
+      (const float*)sin_a, (const float*)hist_width, (const float*)angle,
+      (const int*)valid, half_cap, num_bins, ww, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,11 @@ vectors, so the descriptor is one batched matmul ``(16, S) @ (S, 8)`` per
 keypoint over the inner 4x4 cells (the reference crops its padding ring).
 The sample windows come from the window-gather kernel
 (:func:`kernels.pair_window_gather`), one launch per size bucket; the
-GEMM runs in chunks of ``desc_chunk`` keypoints to bound the two-hot
-intermediates.
+GEMM (:func:`kernels.trilinear_histograms`) runs in chunks of
+``desc_chunk`` keypoints to bound the two-hot intermediates.  That is
+the stitch's route.  :func:`compute_descriptors_histogram` is the other
+one, as in the JAX package: the whole octave's histograms from one
+launch of the trilinear-histogram kernel, with no GEMM.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from vfx_image_stitching_tpu_torch.models.sift.chunking import (
     live_chunk_bound,
 )
 from vfx_image_stitching_tpu_torch.models.sift.kernels import (
+    descriptor_histograms,
     pair_window_gather,
+    trilinear_histograms,
 )
 from vfx_image_stitching_tpu_torch.models.sift.keypoints import (
     Keypoints,
@@ -36,18 +41,6 @@ from vfx_image_stitching_tpu_torch.models.sift.keypoints import (
     take,
     unpack_octave,
 )
-
-
-def _two_hot(idx: torch.Tensor, frac_lo: torch.Tensor, frac_hi: torch.Tensor,
-             n: int, wrap: bool) -> torch.Tensor:
-    """(..., n) vector with frac_lo at idx and frac_hi at idx+1 (opt. mod n)."""
-    pos = torch.arange(n, dtype=torch.int32, device=idx.device)
-    idx0 = torch.remainder(idx, n) if wrap else idx
-    idx1 = torch.remainder(idx + 1, n) if wrap else idx + 1
-    zero = torch.zeros((), dtype=frac_lo.dtype, device=idx.device)
-    lo = torch.where(pos == idx0[..., None], frac_lo[..., None], zero)
-    hi = torch.where(pos == idx1[..., None], frac_hi[..., None], zero)
-    return lo + hi
 
 
 def _finalize(vec: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
@@ -94,75 +87,70 @@ def compute_descriptors(
     """(K, 128) descriptors for *converted* keypoints of one octave, from
     their (K, S, S) gradient windows starting at rows ``sy``, cols ``sx``
     of the octave's (rows_dim, cols_dim) gradient fields."""
-    s = 2 * half_cap + 1
-    nb = cfg.desc_bins
-    ww = cfg.window_width
     (_layer, pt_x, pt_y, angle, cos_a, sin_a, hist_width, half_w) = (
         _window_params(kps, cfg, rows_dim, cols_dim, half_cap)
     )
-    rng = torch.arange(s, dtype=torch.int32, device=magw.device)
-    rows = sy[:, None] + rng[None, :]
-    cols = sx[:, None] + rng[None, :]
-
-    ys = rows - pt_y[:, None]                       # (K, S) row offsets
-    xs = cols - pt_x[:, None]                       # (K, S) col offsets
-    in_win = (
-        (torch.abs(ys) <= half_w[:, None])[:, :, None]
-        & (torch.abs(xs) <= half_w[:, None])[:, None, :]
+    hist, _mask = trilinear_histograms(
+        magw, angw, sy, sx, pt_y, pt_x, half_w, cos_a, sin_a, hist_width,
+        angle, kps.valid, rows_dim, cols_dim, cfg.desc_bins, cfg.window_width,
+        fused_offset=False,
     )
-    in_bounds = (
-        ((rows > 0) & (rows < rows_dim - 1))[:, :, None]
-        & ((cols > 0) & (cols < cols_dim - 1))[:, None, :]
-    )
-    ysf = ys.to(torch.float32)[:, :, None]
-    xsf = xs.to(torch.float32)[:, None, :]
-    r_rot = xsf * sin_a[:, None, None] + ysf * cos_a[:, None, None]
-    c_rot = xsf * cos_a[:, None, None] - ysf * sin_a[:, None, None]
-    hw = hist_width[:, None, None]
-    r_bin = r_rot / hw + 0.5 * ww - 0.5
-    c_bin = c_rot / hw + 0.5 * ww - 0.5
-    in_bin = (r_bin > -1.0) & (r_bin < ww) & (c_bin > -1.0) & (c_bin < ww)
+    return _finalize(hist, cfg)
 
-    weight_mul = -0.5 / ((0.5 * ww) ** 2)
-    weight = torch.exp(weight_mul * ((r_rot / hw) ** 2 + (c_rot / hw) ** 2))
-    mask = in_win & in_bounds & in_bin & kps.valid[:, None, None]
-    zero = torch.zeros((), dtype=torch.float32, device=magw.device)
-    wm = torch.where(mask, weight * magw, zero)
 
-    # sanitize masked samples: hist_width of an invalid slot can be 0,
-    # making r_bin/c_bin inf/nan, and 0 * nan would poison the GEMM
-    r_bin = torch.where(mask, r_bin, zero)
-    c_bin = torch.where(mask, c_bin, zero)
-    ob = torch.remainder((angw - angle[:, None, None]) * (nb / 360.0), nb)
-    ob = torch.where(mask, ob, zero)
+def histogram_inputs(
+    mag_stack: torch.Tensor,
+    ang_stack: torch.Tensor,
+    kps: Keypoints,
+    cfg: SiftConfig,
+    layer_base: int = 0,
+) -> tuple:
+    """The arguments of :func:`kernels.descriptor_histograms` for the live
+    leading ``desc_chunk`` chunks of ``kps`` (window geometry at
+    ``half_cap = max_half_width``; ``hist_width`` 1 where it is not
+    positive, so an invalid row never divides by 0)."""
+    caps = cfg.capacities
+    k = kps.capacity
+    chunk = chunk_size(k, min(caps.desc_chunk, k))
+    n_rows = live_chunk_bound(kps.valid, chunk) * chunk if k else 0
+    live = Keypoints(*[f[:n_rows] for f in kps])
+    rows_dim, cols_dim = mag_stack.shape[-2:]
+    layer, pt_x, pt_y, angle, cos_a, sin_a, hist_width, half_w = _window_params(
+        live, cfg, rows_dim, cols_dim, caps.max_half_width)
+    lyr = (layer - layer_base).clamp(0, mag_stack.shape[-3] - 1)
+    safe_hw = torch.where(hist_width > 0.0, hist_width,
+                          torch.ones_like(hist_width))
+    return (mag_stack, ang_stack, lyr, pt_y, pt_x, half_w, cos_a, sin_a,
+            safe_hw, angle, live.valid, caps.max_half_width, cfg.desc_bins,
+            cfg.window_width)
 
-    r0 = torch.floor(r_bin).to(torch.int32)
-    c0 = torch.floor(c_bin).to(torch.int32)
-    o0 = torch.remainder(torch.floor(ob).to(torch.int32), nb)
-    rf = r_bin - r0
-    cf = c_bin - c0
-    of = ob - o0
 
-    k = wm.shape[0]
-    # reference row split: c1 = wm*rf to row r0+2, (wm - c1) to row r0+1;
-    # only the ww x ww inner cells (rows/cols 1..ww of the padded grid)
-    c1 = wm * rf
-    ra = torch.clamp(r0 + 1, 0, ww + 1)[..., None]
-    ca = torch.clamp(c0 + 1, 0, ww + 1)[..., None]
-    pos = torch.arange(ww * ww, dtype=torch.int32, device=magw.device)
-    pa = torch.div(pos, ww, rounding_mode="floor") + 1
-    pb = pos % ww + 1
-    rv = torch.where(pa == ra, (wm - c1)[..., None], zero) + torch.where(
-        pa == ra + 1, c1[..., None], zero
-    )
-    cv = torch.where(pb == ca, (1.0 - cf)[..., None], zero) + torch.where(
-        pb == ca + 1, cf[..., None], zero
-    )
-    o8 = _two_hot(o0, (1.0 - of), of, nb, wrap=True)  # (K, S, S, 8)
+def compute_descriptors_histogram(
+    mag_stack: torch.Tensor,
+    ang_stack: torch.Tensor,
+    kps: Keypoints,
+    octave: int,
+    cfg: SiftConfig,
+    layer_base: int = 0,
+) -> torch.Tensor:
+    """(K, 128) descriptors of one octave from one launch of the
+    trilinear-histogram kernel (:func:`kernels.descriptor_histograms`)
+    over the live leading rows, then the clip / renormalise / ``rint``
+    of :func:`_finalize`; dead rows are zero.
 
-    rc = (rv * cv).reshape(k, s * s, ww * ww)
-    tensor = torch.bmm(rc.transpose(1, 2), o8.reshape(k, s * s, nb))
-    return _finalize(tensor.reshape(k, ww * ww * nb), cfg)
+    Counterpart of the JAX package's ``compute_descriptors_pallas``: the
+    whole octave's histograms in one pass, with no two-hot GEMM.  It
+    agrees with :func:`compute_descriptors_bucketed` (which the stitch
+    runs) to 1 LSB on under 2% of entries: the two round ``r_bin``
+    differently and sum in other orders."""
+    out_dim = cfg.window_width * cfg.window_width * cfg.desc_bins
+    out = torch.zeros((kps.capacity, out_dim), dtype=torch.float32,
+                      device=mag_stack.device)
+    args = histogram_inputs(mag_stack, ang_stack, kps, cfg, layer_base)
+    n_rows = args[2].shape[0]
+    if n_rows:
+        out[:n_rows] = _finalize(descriptor_histograms(*args), cfg)
+    return out
 
 
 def compute_descriptors_chunked(

@@ -2,12 +2,15 @@
 
 Per localized candidate: a Gaussian-weighted 36-bin histogram of gradient
 directions over a data-dependent radius window (the orientation-histogram
-kernel, :func:`kernels.orientation_histograms`), [1,4,6,4,1]/16 circular
+kernel, :func:`kernels.orientation_histograms`, or with ``VFX_ORIENT_V2=0``
+:func:`kernels.orientation_histograms_v1`), [1,4,6,4,1]/16 circular
 smoothing, and one keypoint per local peak >= 0.8*max with a parabolic
 sub-bin angle.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -19,6 +22,7 @@ from vfx_image_stitching_tpu_torch.models.sift.chunking import (
 )
 from vfx_image_stitching_tpu_torch.models.sift.kernels import (
     orientation_histograms,
+    orientation_histograms_v1,
 )
 from vfx_image_stitching_tpu_torch.models.sift.keypoints import Keypoints
 from vfx_image_stitching_tpu_torch.models.sift.localize import Localized
@@ -63,7 +67,14 @@ def assign_orientations(
     lyr, cy, cx, radius, weight_factor = orientation_inputs(
         loc, octave, cfg, mag_stack.shape[-3], layer_base
     )
-    raw = orientation_histograms(
+    # as the JAX package: VFX_ORIENT_V2 other than "1" selects the v1
+    # histogram kernel's counterpart (same function, another kernel)
+    hist = (
+        orientation_histograms
+        if os.environ.get("VFX_ORIENT_V2", "1") == "1"
+        else orientation_histograms_v1
+    )
+    raw = hist(
         mag_stack, ang_stack, lyr, cy, cx, radius, weight_factor, loc.valid,
         cfg.capacities.max_radius, nb,
     )
