@@ -10,17 +10,21 @@ gave it at octave 0 of the first image (the v1 orientation kernel on the
 default one's; the descriptor-histogram kernel through its route,
 ``compute_descriptors_histogram``, on the descriptor stage's keypoints,
 also held against the stitch's GEMM route); the two descriptor routes
-side by side (``descriptor_ab``); then the end-to-end stitch of the
-chain (one warm-up, timed runs, launch counts, a profiled run, a
-CUDA-vs-CPU check on the first four images, and those four again with
+side by side (``descriptor_ab``); the two probe entry points of
+``vfx_image_stitching_tpu_torch/probes/`` (``probe_localize``: the stack
+sum, cube sums and float-lane Newton kernels, P2-P4; ``probe_desc``: the
+tensor-core descriptor histogram, P1, also against K5 on the chain's
+small-bucket rows); then the end-to-end stitch of the chain (one
+warm-up, timed runs, launch counts, a profiled run, a CUDA-vs-CPU check
+on the first four images, and those four again with
 ``VFX_ORIENT_V2=0``).  Each path's run must launch its kernels and no
 other (``PATHS``), and each kernel row reports the launches of its
 path's run.  The line before the last is the kernel table; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script then exits non-zero; without CUDA it exits non-zero at once.
 
-The synthetic chain helpers (:func:`make_scene`, :func:`synth_chain`) are
-numpy-only and also feed the CPU tests.
+The synthetic chain (``vfx_image_stitching_tpu_torch/utils/synthetic.py``)
+and the device timer (``utils/timing.py``) are the port's.
 """
 
 from __future__ import annotations
@@ -29,88 +33,20 @@ import os
 
 import numpy as np
 
-
-def _bilinear_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Half-pixel-center bilinear resize of an (h, w, c) uint8 image."""
-    def axis(n_out, n_in):
-        c = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
-        c = np.clip(c, 0, n_in - 1)
-        i0 = np.floor(c).astype(np.int64)
-        i1 = np.minimum(i0 + 1, n_in - 1)
-        return i0, i1, c - i0
-
-    y0, y1, fy = axis(out_h, img.shape[0])
-    x0, x1, fx = axis(out_w, img.shape[1])
-    f = img.astype(np.float64)
-    rows = f[y0] * (1 - fy)[:, None, None] + f[y1] * fy[:, None, None]
-    out = rows[:, x0] * (1 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
-    return np.rint(out).astype(np.uint8)
-
-
-def make_scene(h: int, total_w: int, seed: int, block_px: int = 250,
-               block_size: tuple = (4, 12)) -> np.ndarray:
-    """Photo-like BGR scene: smooth background + high-contrast blocks.
-
-    Coarse noise on a 16-pixel grid, bilinear-upsampled, gives the
-    shading; one sprinkled rectangle per ``block_px`` pixels, its sides
-    drawn from ``block_size`` (low inclusive, high exclusive), gives the
-    corners and blobs SIFT finds.  Small blocks feed octave 0, larger
-    ones octaves 1 and 2.
-    """
-    rng = np.random.default_rng(seed)
-    coarse = rng.integers(
-        30, 226, ((h + 15) // 16 + 1, (total_w + 15) // 16 + 1, 3)
-    ).astype(np.uint8)
-    scene = _bilinear_resize(coarse, h, total_w)
-    for _ in range(max(20, h * total_w // block_px)):
-        y0 = int(rng.integers(0, h - 12))
-        x0 = int(rng.integers(0, total_w - 12))
-        hh = int(rng.integers(*block_size))
-        ww = int(rng.integers(*block_size))
-        scene[y0:y0 + hh, x0:x0 + ww] = rng.integers(0, 256, (3,)).astype(np.uint8)
-    return scene
-
-
-def write_ppm(path: str, bgr: np.ndarray) -> None:
-    """Binary PPM (P6) of a BGR uint8 image."""
-    h, w = bgr.shape[:2]
-    with open(path, "wb") as f:
-        f.write(b"P6\n%d %d\n255\n" % (w, h))
-        f.write(np.ascontiguousarray(bgr[..., ::-1]).tobytes())
-
-
-def synth_chain(folder: str, n: int, h: int, w: int, seed: int,
-                focal: float, overlap_frac: float = 0.65,
-                **scene_kw) -> None:
-    """Write an n-image chain of (h, w) crops of one scene + pano.txt.
-
-    Crops run right-to-left so pairwise dx is negative, the pan direction
-    of the reference datasets.  The images are binary PPM; their names end
-    in ``.png.ppm`` because the reference pano.txt parser only takes lines
-    naming ``.jpg``/``.png`` files, and every decoder reads the format from
-    the file's content.
-    """
-    step = w - int(w * overlap_frac)
-    scene = make_scene(h, w + (n - 1) * step + 8, seed, **scene_kw)
-    lines = []
-    for i in range(n):
-        x0 = (n - 1 - i) * step
-        fn = f"im{i:02d}.png.ppm"
-        write_ppm(os.path.join(folder, fn), scene[:, x0:x0 + w])
-        lines += [fn, f"{focal + i * 0.37:.3f}"]
-    with open(os.path.join(folder, "pano.txt"), "w") as f:
-        f.write("\n".join(lines) + "\n")
-
-
-# ---------------------------------------------------------------------------
-# the run on the card
-# ---------------------------------------------------------------------------
+from vfx_image_stitching_tpu_torch.utils.synthetic import (
+    FOCAL,
+    IMG_H,
+    IMG_W,
+    N_IMAGES,
+    SCENE,
+    SEED,
+    synth_chain,
+)
+from vfx_image_stitching_tpu_torch.utils.timing import cuda_ms, device_profile
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12    # f32 outside the tensor cores
-N_IMAGES, IMG_H, IMG_W, FOCAL, SEED = 18, 384, 512, 700.0, 7
-# one small block per 45 px: octave-0 density at the audited level
-SCENE = dict(block_px=45, block_size=(2, 5))
+H100_TF32_FLOP_PER_S = 495e12  # TF32 on the tensor cores, dense
 # per-octave maxima of the capacity audit over the four reference photo
 # sets (config.SiftCapacities), octaves 0-3, and the final keypoints
 AUDITED = dict(cand=(2435, 738, 211, 67), loc=(1478, 430, 122, 50),
@@ -137,6 +73,11 @@ PATHS = {
     "orient_v1": ("localize_newton_resident", "orientation_histograms_v1",
                   "pair_window_gather"),
     "descriptor_histogram": ("descriptor_histograms",),
+    # the probe entry points (vfx_image_stitching_tpu_torch/probes/)
+    "probe_localize": ("feas1_stack_sum", "feas2_cube_sums",
+                       "localize_resident_r4"),
+    # K5 here only for the A/B against P1 on the same rows
+    "probe_desc": ("desc_scratch_dot", "descriptor_histograms"),
 }
 KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
 # float operations of the descriptor-histogram kernel per masked sample:
@@ -144,40 +85,21 @@ KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
 # orientation bin 3, three floors, three fractions, four interpolation
 # weights, 12 products and 8 sums into the bins
 K5_OPS_PER_SAMPLE = 49
+# float operations of P1 per masked sample outside the tensor cores:
+# rotation 6, two divisions, two offsets, weight 6, row split 2,
+# orientation bin 3, three floors, three fractions, two complements and
+# the 16 spatial products of its A operand
+P1_OPS_PER_SAMPLE = 45
+# P1's tensor-core work per masked sample: its column of the (16 cells,
+# 8 bins) product, once per TF32 pass (the TPU kernel's 64-wide padding
+# of each window row is a BlockSpec workaround the kernel does not have)
+P1_MMA_FLOPS_PER_SAMPLE = 2 * 16 * 8
 
 
 def emit(obj) -> None:
     import json
 
     print(json.dumps(obj), flush=True)
-
-
-def device_profile(fn, reps: int = 20, warmup: int = 3):
-    """Device time (ms) and device kernels of one call of ``fn``: the
-    CUDA kernels it launches, summed from ``torch.profiler`` over
-    ``reps`` calls.  (CUDA events around a call would also count the
-    wrapper's host work, which at these sizes is longer than the
-    kernels.)"""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    us = sum(e.self_device_time_total for e in events)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / reps / 1e3, sum(e.count for e in events) / reps
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    return device_profile(fn, reps, warmup)[0]
 
 
 def check_launches(path: str, launches: dict) -> None:
@@ -188,9 +110,12 @@ def check_launches(path: str, launches: dict) -> None:
         raise AssertionError(f"{path}: launches {launches}, expected only {want}")
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, tf32_flops: float = 0.0):
+    """The larger of the bytes' time at the HBM rate and the operations'
+    time (f32 at the f32 rate, TF32 tensor-core products at theirs)."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_flops / H100_F32_FLOP_PER_S * 1e3
+    t_ops = max(n_flops / H100_F32_FLOP_PER_S,
+                tf32_flops / H100_TF32_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -285,16 +210,24 @@ def newton_iterations(dog, layer, y, x, cv, cfg):
     st["rejected"] = ~cv
     total = 0
     hit = torch.zeros(dog.shape, dtype=torch.bool, device=dog.device)
-    d = torch.arange(-1, 2, device=dog.device)
     for _ in range(cfg.max_localize_iters):
         active = ~(st["converged"] | st["rejected"])
         total += int(active.sum())
-        lc, yc, xc = (st[n][active].long() for n in ("l", "y", "x"))
-        hit[lc[:, None, None, None] + d[:, None, None],
-            yc[:, None, None, None] + d[:, None],
-            xc[:, None, None, None] + d] = True
+        mark_cubes(hit, *(st[n][active] for n in ("l", "y", "x")))
         st = newton_step(dog, st, cfg)
     return total, int(hit.sum())
+
+
+def mark_cubes(hit, layer, y, x) -> None:
+    """Set the 3x3x3 cubes around (layer, y, x) in the boolean stack
+    ``hit``."""
+    import torch
+
+    d = torch.arange(-1, 2, device=hit.device)
+    lc, yc, xc = (t.long() for t in (layer, y, x))
+    hit[lc[:, None, None, None] + d[:, None, None],
+        yc[:, None, None, None] + d[:, None],
+        xc[:, None, None, None] + d] = True
 
 
 def check_kernels(inp: dict):
@@ -544,6 +477,185 @@ def descriptor_ab(calls: dict, reps: int = 10) -> dict:
                 rows=int(kps.capacity), **out)
 
 
+def probe_localize(dev):
+    """The localize probe's path (``probes/localize_resident_r4.py``): its
+    run with the launch counts at 0 (``feas1``, ``feas2``, and P4 +
+    finalize on every octave of the chain's image 0), then each phase's
+    checks and device times, and the rows of P2, P3 and P4 (P4 on octave
+    0's candidate slots).  Returns the rows and the path run's launches."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+    from vfx_image_stitching_tpu_torch.probes import localize_resident_r4 as R
+
+    cfg, octaves = inputs = R.octave_inputs(dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    R.feas1(dev)
+    R.feas2(dev)
+    for o, dog, cand in octaves:
+        R.localize_resident_r4(dog, *cand, o, cfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_launches("probe_localize", launches)
+
+    phases = [R.feas1(dev, timer=cuda_ms), R.feas2(dev, timer=cuda_ms),
+              R.newton(dev, timer=cuda_ms, inputs=inputs)]
+    for ph in phases:
+        emit(ph)
+        if not ph["ok"]:
+            raise AssertionError(f"probe {ph['phase']} failed")
+    f1, f2, nw = phases
+    src = "vfx_image_stitching_tpu_torch/csrc/probe_kernels.cu"
+    script = "scripts/probe_localize_resident_r4.py"
+    rows = []
+
+    dog1 = R.feas1_input(dev)
+    n_l = dog1.shape[0]
+    b, by = bound_ms(n_l * 8 * 128 * 4 + 8 * 128 * 4, n_l * 8 * 128)
+    rows.append(dict(
+        name="feas1_stack_sum", route="cuda", source=src,
+        replaces=f"{script}:77", launches=0, max_abs_err=0.0, ms=f1["ms"],
+        plain_ms=cuda_ms(lambda: PK.feas1_stack_sum_plain(dog1), reps=5),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: dog1[:, :8, :128].sum(0)),
+        shape=dict(stack=list(dog1.shape), stack_mb=f1["stack_mb"],
+                   l2_mb=f1.get("l2_mb"))))
+
+    args2 = R.feas2_inputs(dev)
+    k2 = args2[1].shape[0]
+    hit = torch.zeros(args2[0].shape, dtype=torch.bool, device=dev)
+    mark_cubes(hit, *args2[1:])
+    distinct = int(hit.sum())
+    b, by = bound_ms(distinct * 4 + k2 * 3 * 4 + k2 * 4, k2 * 27)
+    rows.append(dict(
+        name="feas2_cube_sums", route="cuda", source=src,
+        replaces=f"{script}:170", launches=0, max_abs_err=f2["max_err"],
+        ms=f2["ms"], plain_ms=cuda_ms(lambda: PK.feas2_cube_sums_plain(*args2), reps=5),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=dict(stack=list(args2[0].shape), candidates=k2,
+                   distinct_values=distinct,
+                   us_per_candidate=f2["us_per_candidate"])))
+
+    o, dog, cand = octaves[0]
+    walk = (cfg.image_border_width, cfg.num_intervals, cfg.max_localize_iters)
+    n_k = cand[0].shape[0]
+    iters, cube_values = newton_iterations(dog, *cand, cfg)
+    # K1's bound plus the 13 float lanes written per row
+    b, by = bound_ms(n_k * 4 * 4 + n_k * 8 * 4 + cube_values * 4 + n_k * 13 * 4,
+                     iters * 122)
+    rows.append(dict(
+        name="localize_resident_r4", route="cuda", source=src,
+        replaces=f"{script}:424", launches=0,
+        max_abs_err=nw["per_octave"][0]["float_lanes_max_abs_err"],
+        ms=cuda_ms(lambda: PK.localize_resident_r4_lanes(dog, *cand, *walk)),
+        plain_ms=cuda_ms(lambda: PK.localize_resident_r4_lanes_plain(dog, *cand, *walk),
+                         reps=5),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=dict(dog=list(dog.shape), candidates=n_k,
+                   valid=int(cand[3].sum()), newton_steps=iters,
+                   distinct_dog_values=cube_values,
+                   ms_octave0=nw["ms_octave0"])))
+    for row in rows:
+        emit(dict(phase="kernel", **row))
+    return rows, launches
+
+
+def chain_small_rows(calls: dict):
+    """P1's and K5's arguments for the descriptor stage's octave-0
+    keypoints of image 0 whose half-width is in the small bucket."""
+    from vfx_image_stitching_tpu_torch.models.sift import descriptor as D
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    args, kw = calls["compute_descriptors_bucketed"]
+    mag, ang, kps, _octave, dcfg = args
+    if dcfg.capacities.desc_small_half != PK.P1_HALF:
+        raise AssertionError("the small bucket's half is not P1's")
+    (mag_s, ang_s, lyr, py, px, half_w, cos_a, sin_a, hist_w, angle, valid,
+     _cap, nb, ww) = D.histogram_inputs(mag, ang, kps, dcfg, kw["layer_base"])
+    keep = (valid & (half_w <= PK.P1_HALF)).nonzero()[:, 0]
+    rows = [t[keep] for t in (lyr, py, px, half_w, cos_a, sin_a, hist_w,
+                              angle, valid)]
+    h, w = mag_s.shape[-2:]
+    return (mag_s, ang_s, *rows, h, w), (mag_s, ang_s, *rows, PK.P1_HALF, nb, ww)
+
+
+def p1_bound(p1_args, tensor_passes: int):
+    """P1's bound on these arguments: distinct window bytes plus per-row
+    I/O, the tensor-core products, and the per-sample f32 operations."""
+    from vfx_image_stitching_tpu_torch.models.sift.kernels import _window_coords
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    mag, _ang, layer, py, px = p1_args[:5]
+    _lhs, _rhs, mask = PK.scratch_dot_operands(*p1_args)
+    rows, cols = _window_coords(py, px, PK.P1_HALF, *mag.shape[-2:])
+    distinct = distinct_pixels(mag.shape, layer, rows, cols, mask)
+    n_k = layer.shape[0]
+    samples = int(mask.sum())
+    valid = int(p1_args[10].sum())
+    b, by = bound_ms(distinct * 8 + n_k * 9 * 4 + n_k * 128 * 4,
+                     samples * P1_OPS_PER_SAMPLE,
+                     samples * P1_MMA_FLOPS_PER_SAMPLE * tensor_passes)
+    return b, by, dict(rows=n_k, valid=valid, masked_samples=samples,
+                       distinct_pixels=distinct)
+
+
+def probe_desc(calls: dict, dev):
+    """The descriptor probe's path (``probes/desc_scratch_dot.py``): its
+    run with the launch counts at 0 (P1 in both precisions on the probe's
+    chip inputs and on the chain's small-bucket rows, and K5 on those
+    rows), then the probe's checks and times on both inputs, P1 against
+    K5 on the chain's rows, and P1's row (the probe's inputs, default
+    precision).  Returns the row and the path run's launches."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import desc_scratch_dot as DS
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    k, n_l, hs, ws = DS.CHIP_SHAPE
+    synth = DS.to_torch(DS.make_inputs(np.random.default_rng(DS.SEED), k, n_l, hs, ws),
+                        dev)
+    chain_p1, chain_k5 = chain_small_rows(calls)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for highest in (False, True):
+        PK.desc_scratch_dot(*synth, hs, ws, highest=highest)
+        PK.desc_scratch_dot(*chain_p1, highest=highest)
+    K.descriptor_histograms(*chain_k5)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_launches("probe_desc", launches)
+
+    probe = DS.check_kernel(synth, hs, ws, timer=cuda_ms)
+    chain = DS.check_kernel(chain_p1[:-2], *chain_p1[-2:], timer=cuda_ms)
+    k5 = K.descriptor_histograms(*chain_k5)
+    scale = float(k5.abs().max()) or 1.0
+    n = k5.shape[0]
+    for name, highest in (("default", False), ("highest", True)):
+        p1 = PK.desc_scratch_dot(*chain_p1, highest=highest).reshape(n, -1)
+        chain[f"{name}_vs_k5_max_rel"] = float((p1 - k5).abs().max()) / scale
+    chain["k5_ms"] = cuda_ms(lambda: K.descriptor_histograms(*chain_k5))
+    emit(dict(phase="probe_desc", probe_inputs=probe, chain_small_rows=chain))
+    if chain["highest_vs_k5_max_rel"] > 1e-5 or chain["default_vs_k5_max_rel"] > 2e-3:
+        raise AssertionError(f"P1 and K5 disagree: {chain}")
+
+    b, by, shape = p1_bound((*synth, hs, ws), tensor_passes=1)
+    hb, hby, _ = p1_bound((*synth, hs, ws), tensor_passes=3)
+    row = dict(
+        name="desc_scratch_dot", route="cuda",
+        source="vfx_image_stitching_tpu_torch/csrc/probe_kernels.cu",
+        replaces="scripts/probe_desc_scratch_dot.py:214", launches=0,
+        max_abs_err=probe["default_max_abs_err"], ms=probe["default_ms"],
+        plain_ms=cuda_ms(lambda: PK.desc_scratch_dot_plain(*synth, hs, ws), reps=5),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=dict(stack=[n_l, hs, ws], highest_ms=probe["highest_ms"],
+                   highest_bound_ms=hb, highest_bound_by=hby, **shape))
+    emit(dict(phase="kernel", **row))
+    return row, launches
+
+
 def run_stitch(folder: str, device: str):
     from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
 
@@ -745,9 +857,13 @@ def main() -> int:
         inp = path_inputs(folder, dev)
         rows, k5_launches = check_kernels(inp)
         emit(descriptor_ab(inp["calls"]))
+        p_rows, p_loc_launches = probe_localize(dev)
+        p1_row, p_desc_launches = probe_desc(inp["calls"], dev)
+        rows += [p1_row, *p_rows]
         e2e = end_to_end(work, folder)
     by_path = dict(stitch=e2e["launches"], orient_v1=e2e["orient_v1"]["launches"],
-                   descriptor_histogram=k5_launches)
+                   descriptor_histogram=k5_launches,
+                   probe_localize=p_loc_launches, probe_desc=p_desc_launches)
     for row in rows:
         row["launches"] = by_path[KERNEL_PATH[row["name"]]][row["name"]]
         row.pop("shape")

@@ -7,7 +7,10 @@ JAX nor the test conftest, so on the GPU machine it runs as
 Contracts: the Newton kernel's integer lanes and the window gather bit for
 bit; orientation histograms (both kernels) to rtol 2e-5 / atol 2e-3 and
 raw descriptor histograms to rtol 1e-5 / atol 1e-3 (reduction order),
-each bit-identical from launch to launch.
+each bit-identical from launch to launch.  The probe kernels
+(``probes/kernels.py``): the stack and cube sums and the float-lane
+Newton kernel bit for bit; the tensor-core descriptor histogram within
+2e-3 (TF32) and 1e-5 (3xTF32) of its plain version's maximum.
 """
 
 import numpy as np
@@ -26,7 +29,7 @@ def dev():
 
 def _octave0(dev, h=96, w=128, seed=0):
     """Octave 0 of a synthetic image: Gaussian stack, DoG, candidates."""
-    from chip_smoke import make_scene
+    from vfx_image_stitching_tpu_torch.utils.synthetic import make_scene
     from vfx_image_stitching_tpu_torch.models.sift import extrema as te
     from vfx_image_stitching_tpu_torch.models.sift import pyramid as tp
 
@@ -146,7 +149,7 @@ def test_pair_window_gather_kernel_matches_plain(dev):
 def test_stitch_on_cuda_matches_cpu(dev, tmp_path):
     """A small chain stitched on the card and on the CPU: equal shifts and
     pairs, byte-identical panorama."""
-    from chip_smoke import synth_chain
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
     from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
 
     synth_chain(str(tmp_path), 3, 96, 128, seed=4, focal=300.0)
@@ -154,3 +157,80 @@ def test_stitch_on_cuda_matches_cpu(dev, tmp_path):
     cpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cpu")
     assert gpu.shifts == cpu.shifts and gpu.pairs == cpu.pairs
     assert np.array_equal(gpu.panorama, cpu.panorama)
+
+
+def test_feas1_stack_sum_kernel_matches_plain(dev):
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    rng = np.random.default_rng(5)
+    dog = torch.as_tensor(rng.standard_normal((5, 20, 200)).astype(np.float32),
+                          device=dev)
+    n0 = K.LAUNCHES["feas1_stack_sum"]
+    got = PK.feas1_stack_sum(dog)
+    assert K.LAUNCHES["feas1_stack_sum"] == n0 + 1
+    assert torch.equal(got, PK.feas1_stack_sum_plain(dog))
+    assert torch.equal(got, PK.feas1_stack_sum(dog))
+
+
+def test_feas2_cube_sums_kernel_matches_plain(dev):
+    """Interior and out-of-stack candidates (indices clamped alike)."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    rng = np.random.default_rng(6)
+    n_l, h, w, k = 5, 40, 70, 1000
+    dog = torch.as_tensor(rng.standard_normal((n_l, h, w)).astype(np.float32),
+                          device=dev)
+    idx = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
+           for lo, hi in ((-1, n_l + 1), (-1, h + 1), (-1, w + 1))]
+    n0 = K.LAUNCHES["feas2_cube_sums"]
+    got = PK.feas2_cube_sums(dog, *idx)
+    assert K.LAUNCHES["feas2_cube_sums"] == n0 + 1
+    assert torch.equal(got, PK.feas2_cube_sums_plain(dog, *idx))
+    assert torch.equal(got, PK.feas2_cube_sums(dog, *idx))
+
+
+def test_localize_resident_r4_kernel_matches_plain(dev):
+    """Float and integer lanes bit for bit, integer lanes equal to K1's."""
+    from vfx_image_stitching_tpu_torch.models.sift import extrema as te
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    rng = np.random.default_rng(2)
+    rand = torch.as_tensor(rng.integers(-80, 80, (5, 21, 131)).astype(np.float32),
+                           device=dev)
+    for dog, cand in (_octave0(dev)[1:], (rand, te.extract_candidates(rand, 5, 1.0, 256))):
+        assert int(cand[3].sum()) > 0
+        n0 = K.LAUNCHES["localize_resident_r4"]
+        outf, outi = PK.localize_resident_r4_lanes(dog, *cand, 5, 3, 5)
+        assert K.LAUNCHES["localize_resident_r4"] == n0 + 1
+        want_f, want_i = PK.localize_resident_r4_lanes_plain(dog, *cand, 5, 3, 5)
+        assert torch.equal(outi, want_i) and torch.equal(outf, want_f)
+        assert torch.equal(outi, K.localize_newton_resident(dog, *cand, 5, 3, 5))
+        again = PK.localize_resident_r4_lanes(dog, *cand, 5, 3, 5)
+        assert torch.equal(outf, again[0]) and torch.equal(outi, again[1])
+
+
+@pytest.mark.parametrize("highest", [False, True])
+def test_desc_scratch_dot_kernel_matches_plain(dev, highest):
+    """The probe's inputs (two invalid rows) plus keypoints near and past
+    the fields' edges."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import desc_scratch_dot as DS
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    rng = np.random.default_rng(7)
+    k, hs, ws = 200, 120, 160
+    args = list(DS.make_inputs(rng, k, 3, hs, ws))
+    args[3][:20] = rng.integers(-10, hs + 10, 20)   # py
+    args[4][:20] = rng.integers(-10, ws + 10, 20)   # px
+    targs = DS.to_torch(args, dev)
+    n0 = K.LAUNCHES["desc_scratch_dot"]
+    got = PK.desc_scratch_dot(*targs, hs, ws, highest=highest)
+    assert K.LAUNCHES["desc_scratch_dot"] == n0 + 1
+    want = PK.desc_scratch_dot_plain(*targs, hs, ws)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= (1e-5 if highest else 2e-3), err
+    assert torch.equal(got, PK.desc_scratch_dot(*targs, hs, ws, highest=highest))
+    assert not got[-2:].any()

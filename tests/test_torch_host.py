@@ -164,7 +164,7 @@ def test_read_pnm_matches_cv2_imread(tmp_path):
     """The OpenCV-free PNM reader gives cv2.imread's bytes (BGR order)."""
     import cv2
 
-    from chip_smoke import write_ppm
+    from vfx_image_stitching_tpu_torch.utils.synthetic import write_ppm
     from vfx_image_stitching_tpu_torch.io import read_pnm
 
     rng = np.random.default_rng(0)
@@ -199,7 +199,7 @@ def test_load_bgr_decoders_agree(tmp_path, monkeypatch):
     undecodable files raise instead of returning None."""
     import cv2
 
-    from chip_smoke import write_ppm
+    from vfx_image_stitching_tpu_torch.utils.synthetic import write_ppm
     from vfx_image_stitching_tpu import io as jio
     from vfx_image_stitching_tpu_torch import io as tio
 
@@ -225,7 +225,7 @@ def test_load_bgr_decoders_agree(tmp_path, monkeypatch):
 
 @requires_cv2
 def test_load_dataset_and_peek_match(tmp_path):
-    from chip_smoke import synth_chain
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
     from vfx_image_stitching_tpu import io as jio
     from vfx_image_stitching_tpu_torch import io as tio
 
@@ -378,7 +378,7 @@ def test_escalate_pair_forced_knife_edge(monkeypatch, matched, forced_rows,
 def test_strict_host_pyramid_and_descriptor_copy():
     """The copied strict module rebuilds the same cv2 pyramid and the same
     reference-exact descriptor as the original."""
-    from chip_smoke import make_scene
+    from vfx_image_stitching_tpu_torch.utils.synthetic import make_scene
     from vfx_image_stitching_tpu.config import SiftConfig as JCfg
     from vfx_image_stitching_tpu.models.sift import strict as jstrict
     from vfx_image_stitching_tpu_torch.config import SiftConfig as TCfg
@@ -457,7 +457,7 @@ def test_escalation_without_cv2_names_the_cause(monkeypatch):
 def test_stitch_degrades_on_unreadable_image(tmp_path):
     """An unreadable image yields the reference's degraded entries: shift
     (0, 0) and a dummy pair for both pairs it belongs to."""
-    from chip_smoke import synth_chain
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
     from vfx_image_stitching_tpu_torch.config import SiftCapacities, StitchConfig
     from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
 

@@ -32,7 +32,7 @@ def _ulp(a, b) -> int:
 
 def _octave_dog(h=64, w=96, seed=0, octave=0):
     """A real DoG octave and its candidates, from the JAX package."""
-    from chip_smoke import make_scene
+    from vfx_image_stitching_tpu_torch.utils.synthetic import make_scene
     from vfx_image_stitching_tpu.models.sift import extrema as je
     from vfx_image_stitching_tpu.models.sift import pyramid as jp
 

@@ -28,7 +28,7 @@ def _ulp(a, b) -> int:
 
 
 def _gray(h=48, w=64, seed=0):
-    from chip_smoke import make_scene
+    from vfx_image_stitching_tpu_torch.utils.synthetic import make_scene
 
     return make_scene(h, w, seed).astype(np.float32)[..., 1]
 

@@ -1,0 +1,252 @@
+"""PyTorch port: the probe entry points (``vfx_image_stitching_tpu_torch/
+probes/``) and their kernels' plain versions, against the probe scripts'
+Pallas kernels (TPU interpret mode) and their own checks.  The scripts are
+loaded by file path; the CUDA kernels themselves are held against these
+plain versions in tests/test_torch_cuda.py, on a GPU.
+
+Contracts: P1 (the tensor-core descriptor histogram) within 1e-5 of the
+maximum against the JAX kernel and the float64 oracle; P2 and P3 (stack
+and cube sums) bit for bit against the kernel bodies' arithmetic and the
+probe's checks (P2 and P3 are closures of ``feas1()`` / ``feas2()``,
+which write into ``docs/``, so they are not called); P4 (the Newton
+kernel with float lanes): integer lanes, mask and cells exact against the
+JAX kernel, float fields within 1e-6 relative (the interpreted JAX kernel
+does not divide by 255 correctly rounded), and every field bit-exact
+against the port's own plain chunked path.
+"""
+
+import importlib.util
+import json
+import os
+import sys
+from unittest import mock
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "scripts")
+
+
+def _load_script(name: str):
+    """A probe script loaded by path under a private module name; the
+    environment it touches at import is restored."""
+    key = "_probe_" + name
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            key, os.path.join(SCRIPTS, name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        with mock.patch.dict(os.environ):
+            spec.loader.exec_module(mod)
+        sys.modules[key] = mod
+    return sys.modules[key]
+
+
+# ---------------------------------------------------------------------------
+# P1: desc_scratch_dot
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def p1_case():
+    """``make_inputs`` (seed 7) at K=8 on 3x96x128, and the probe's
+    float64 oracle of them."""
+    from vfx_image_stitching_tpu_torch.probes import desc_scratch_dot as DS
+
+    probe = _load_script("probe_desc_scratch_dot")
+    args = DS.make_inputs(np.random.default_rng(DS.SEED), 8, 3, 96, 128)
+    return probe, args, probe.oracle(*args, img_h=96, img_w=128)
+
+
+def test_desc_scratch_dot_plain_matches_pallas_and_oracle(p1_case):
+    from vfx_image_stitching_tpu_torch.probes import desc_scratch_dot as DS
+
+    probe, args, want = p1_case
+    ref = np.asarray(probe.desc_scratch_dot(
+        *map(jnp.asarray, args), img_h=96, img_w=128, interpret=True))
+    got = DS.desc_scratch_dot(*DS.to_torch(args, "cpu"), 96, 128).numpy()
+    assert got.shape == (8, 16, 8)
+    scale = np.abs(want).max()
+    assert np.abs(got - ref).max() <= 1e-5 * scale
+    assert np.abs(got - want).max() <= 1e-5 * scale
+    assert not got[-2:].any() and (got[:-2].max(axis=(1, 2)) > 0).all()
+
+
+def test_desc_scratch_dot_oracle_copy_matches_probe(p1_case):
+    from vfx_image_stitching_tpu_torch.probes import desc_scratch_dot as DS
+
+    _probe, args, want = p1_case
+    assert np.array_equal(DS.oracle(*args, img_h=96, img_w=128), want)
+
+
+def test_desc_scratch_dot_cli_cpu(capsys):
+    from vfx_image_stitching_tpu_torch.probes import desc_scratch_dot as DS
+
+    assert DS.main(["cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["mode"] == "cpu" and res["k"] == 24 and res["max_rel_err"] < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# P2 / P3: feas1 / feas2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["arange", "random"])
+def test_feas1_stack_sum_plain_matches_kernel_arithmetic(case):
+    """The kernel body ``acc = acc + dog_ref[l, :8, :128]`` in f32, and
+    the probe's check (totals within 1e-5)."""
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    shape = (5, 16, 160) if case == "arange" else (3, 8, 128)
+    n = int(np.prod(shape))
+    dog = (np.arange(n, dtype=np.float32).reshape(shape) * np.float32(1e-4)
+           if case == "arange"
+           else np.random.default_rng(1).standard_normal(shape).astype(np.float32))
+    acc = np.zeros((8, 128), np.float32)
+    for plane in dog:
+        acc = acc + plane[:8, :128]
+    got = PK.feas1_stack_sum(torch.as_tensor(dog)).numpy()
+    assert np.array_equal(got, acc)
+    expect = float(jnp.sum(jnp.asarray(dog)[:, :8, :128]))
+    assert abs(expect - float(got.sum())) / max(abs(expect), 1) < 1e-5
+
+
+@pytest.mark.parametrize("case", ["arange", "random"])
+def test_feas2_cube_sums_plain_matches_probe_check(case):
+    """The probe's ``expect += dn[l+dl, y+dy, x+dx]`` (the kernel body's
+    (dl, dy, dx) order from 0), bit for bit."""
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+    from vfx_image_stitching_tpu_torch.probes.localize_resident_r4 import (
+        feas2_expect,
+    )
+
+    shape, k = (5, 24, 40), 64
+    rng = np.random.default_rng(0)
+    idx = [rng.integers(lo, hi, k).astype(np.int32)
+           for lo, hi in ((1, 4), (1, shape[1] - 1), (1, shape[2] - 1))]
+    n = int(np.prod(shape))
+    dog = (np.arange(n, dtype=np.float32).reshape(shape) * np.float32(1e-6)
+           if case == "arange"
+           else rng.standard_normal(shape).astype(np.float32))
+    args = [torch.as_tensor(a) for a in (dog, *idx)]
+    got = PK.feas2_cube_sums(*args).numpy()
+    assert np.array_equal(got, feas2_expect(*args))
+
+
+@pytest.mark.parametrize("phase", ["feas1", "feas2"])
+def test_localize_probe_cli_cpu(phase, capsys):
+    """The entry point at the probe's sizes, on the CPU."""
+    from vfx_image_stitching_tpu_torch.probes import localize_resident_r4 as R
+
+    assert R.main([phase, "--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["phase"] == phase and res["ok"] and res["device"] == "cpu"
+    assert "ms" not in res     # no device time from a CPU run
+
+
+def test_probe_kernel_wrappers_check_inputs():
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    with pytest.raises(ValueError):
+        PK.feas1_stack_sum(torch.zeros((2, 4, 128)))
+    with pytest.raises(TypeError):
+        PK.feas2_cube_sums(torch.zeros((3, 4, 4)), *(torch.zeros(2, dtype=torch.int64),) * 3)
+    with pytest.raises(ValueError):
+        PK.localize_resident_r4_lanes(
+            torch.zeros((3, 8, 8)), *(torch.zeros(2, dtype=torch.int32),) * 3,
+            torch.zeros(3, dtype=torch.bool), 1, 1, 5)
+
+
+# ---------------------------------------------------------------------------
+# P4: _localize_resident
+# ---------------------------------------------------------------------------
+
+def _ulp(a, b) -> np.ndarray:
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - np.asarray(b, np.float32).view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("case", ["random", "scene"])
+def test_localize_resident_r4_matches_pallas_interpret(case, monkeypatch):
+    """The port's P4 + finalize against the probe's ``_localize_resident``
+    under ``force_tpu_interpret_mode`` on a (5, 32, 256) random DoG and
+    one octave of a synthetic scene.  The JAX kernel's lanes are read at
+    its finalization.  Integer lanes exact on every row; valid mask and
+    the integer fields exact on every row (``octave_packed`` on the valid
+    rows: its ``rint`` of the update is a knife edge); float fields within
+    1e-6 relative on the valid rows.  The interpreted JAX kernel's cube
+    values (value / 255) come out up to 1 ulp from the correctly rounded
+    quotient (its ``center`` lane), and the differences and the solve
+    amplify that in the other float lanes.  Then against the port's plain
+    chunked path: every field bit-exact on the valid rows."""
+    from jax.experimental.pallas import tpu as pltpu
+    from test_torch_kernels import _octave_dog
+
+    from vfx_image_stitching_tpu.config import SiftConfig as JCfg
+    from vfx_image_stitching_tpu.models.sift import extrema as je
+    from vfx_image_stitching_tpu.models.sift import localize as jl
+    from vfx_image_stitching_tpu_torch.config import SiftConfig as TCfg
+    from vfx_image_stitching_tpu_torch.models.sift.localize import (
+        localize_candidates_chunked,
+    )
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+    from vfx_image_stitching_tpu_torch.probes import localize_resident_r4 as R
+
+    probe = _load_script("probe_localize_resident_r4")
+    if case == "random":
+        dog = np.random.default_rng(2).integers(-80, 80, (5, 32, 256)).astype(np.float32)
+        cand = [np.array(a) for a in je.extract_candidates(
+            jnp.asarray(dog), 5, je.extrema_threshold(0.04, 3), 64)]
+    else:
+        _, dog, cand = _octave_dog(64, 96)
+    lanes = {}
+    finalize = jl._finalize_localized
+
+    def spy(st, *a, **kw):
+        lanes.update({n: np.asarray(v) for n, v in st.items()})
+        return finalize(st, *a, **kw)
+
+    monkeypatch.setattr(jl, "_finalize_localized", spy)
+    with pltpu.force_tpu_interpret_mode():
+        ref = probe._localize_resident(jnp.asarray(dog),
+                                       *(jnp.asarray(a) for a in cand), 0, JCfg())
+    tcand = [torch.as_tensor(a) for a in cand]
+    got = R.localize_resident_r4(torch.as_tensor(dog), *tcand, 0, TCfg())
+
+    _f, outi = PK.localize_resident_r4_lanes(torch.as_tensor(dog), *tcand, 5, 3, 5)
+    for j, name in enumerate(PK.INT_LANES):
+        assert np.array_equal(lanes[name].astype(np.int32), outi[:, j].numpy()), name
+    assert _ulp(lanes["center"], _f[:, PK.FLOAT_LANES.index("center")]).max() <= 1
+
+    v = np.asarray(ref.valid)
+    assert np.array_equal(got.valid.numpy(), v) and v.sum() >= 8
+    for name in ("x", "y", "layer", "jx", "jy", "jl"):
+        assert np.array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name))), name
+    assert np.array_equal(got.octave_packed.numpy()[v], np.asarray(ref.octave_packed)[v])
+    for name in ("pt_x", "pt_y", "size", "response"):
+        np.testing.assert_allclose(getattr(got, name).numpy()[v],
+                                   np.asarray(getattr(ref, name))[v], rtol=1e-6,
+                                   atol=0, err_msg=name)
+
+    plain = localize_candidates_chunked(torch.as_tensor(dog), *tcand, 0, TCfg())
+    assert torch.equal(plain.valid, got.valid)
+    for name in plain._fields:
+        assert torch.equal(getattr(plain, name)[plain.valid],
+                           getattr(got, name)[plain.valid]), name
+
+
+def test_newton_on_small_chain_cpu():
+    """The ``newton`` phase on every octave of a 3-image 96x128 chain's
+    image 0, on the CPU: P4 + finalize equals the plain chunked path and
+    its integer lanes K1's (the plain versions here)."""
+    from vfx_image_stitching_tpu_torch.probes import localize_resident_r4 as R
+
+    res = R.newton("cpu", chain=dict(n=3, h=96, w=128, seed=4, focal=300.0))
+    assert res["ok"] and res["total_valid_rows"] > 20
+    assert len(res["per_octave"]) >= 5 and "ms_octave0" not in res
+    for row in res["per_octave"]:
+        assert row["float_lanes_rows_not_exact"] == 0
+        assert all(v == 0 for v in row["float_rows_not_exact"].values())

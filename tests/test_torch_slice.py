@@ -45,7 +45,7 @@ def configs():
 
 @pytest.fixture(scope="module")
 def chain(tmp_path_factory):
-    from chip_smoke import synth_chain
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
 
     folder = str(tmp_path_factory.mktemp("chain"))
     synth_chain(folder, N, H, W, seed=SEED, focal=FOCAL)

@@ -13,21 +13,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "newton_step.cuh"
+
 namespace {
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// int32 add that wraps like the plain versions' tensor arithmetic
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
+using sift::clampi;
 
 // ---------------------------------------------------------------------------
 // K1: per-candidate Newton localization (replaces localize_newton_resident).
-// One thread per candidate; compute -> store -> converge-check -> move, as
-// localize.newton_step, with a per-candidate early exit.
+// One thread per candidate runs sift::newton_walk (newton_step.cuh): compute
+// -> store -> converge-check -> move, as localize.newton_step, with a
+// per-candidate early exit.  Only the integer lanes are written.
 // ---------------------------------------------------------------------------
 __global__ void localize_newton_kernel(
     const float* __restrict__ dog, int h, int w,
@@ -41,75 +37,16 @@ __global__ void localize_newton_kernel(
     for (int c = 0; c < 8; ++c) o[c] = 0;
     return;
   }
-  const size_t hw = (size_t)h * w;
-  int x = xs[i], y = ys[i], l = layer[i];
-  int cx = x, cy = y, cl = l;
-  bool conv = false, rej = false;
-  for (int t = 0; t < max_iters && !conv && !rej; ++t) {
-    const float* base = dog + (size_t)l * hw + (size_t)y * w + x;
-    float c[27];
-#pragma unroll
-    for (int dl = -1; dl <= 1; ++dl)
-#pragma unroll
-      for (int dy = -1; dy <= 1; ++dy)
-#pragma unroll
-        for (int dx = -1; dx <= 1; ++dx)
-          c[(dl + 1) * 9 + (dy + 1) * 3 + (dx + 1)] =
-              base[(ptrdiff_t)dl * (ptrdiff_t)hw + (ptrdiff_t)dy * w + dx] / 255.0f;
-#define C(dl, dy, dx) c[((dl) + 1) * 9 + ((dy) + 1) * 3 + ((dx) + 1)]
-    // localize._derivatives
-    float gx = 0.5f * (C(0, 0, 1) - C(0, 0, -1));
-    float gy = 0.5f * (C(0, 1, 0) - C(0, -1, 0));
-    float gs = 0.5f * (C(1, 0, 0) - C(-1, 0, 0));
-    float v = C(0, 0, 0);
-    float dxx = (C(0, 0, 1) - 2.0f * v) + C(0, 0, -1);
-    float dyy = (C(0, 1, 0) - 2.0f * v) + C(0, -1, 0);
-    float dss = (C(1, 0, 0) - 2.0f * v) + C(-1, 0, 0);
-    float dxy = 0.25f * (((C(0, 1, 1) - C(0, 1, -1)) - C(0, -1, 1)) + C(0, -1, -1));
-    float dxs = 0.25f * (((C(1, 0, 1) - C(1, 0, -1)) - C(-1, 0, 1)) + C(-1, 0, -1));
-    float dys = 0.25f * (((C(1, 1, 0) - C(1, -1, 0)) - C(-1, 1, 0)) + C(-1, -1, 0));
-#undef C
-    // localize._solve3, same cofactor chain
-    float c00 = dyy * dss - dys * dys;
-    float c01 = dys * dxs - dxy * dss;
-    float c02 = dxy * dys - dyy * dxs;
-    float det = (dxx * c00 + dxy * c01) + dxs * c02;
-    float c11 = dxx * dss - dxs * dxs;
-    float c12 = dxy * dxs - dxx * dys;
-    float c22 = dxx * dyy - dxy * dxy;
-    float nux = (c00 * gx + c01 * gy) + c02 * gs;
-    float nuy = (c01 * gx + c11 * gy) + c12 * gs;
-    float nus = (c02 * gx + c12 * gy) + c22 * gs;
-    bool ok = fabsf(det) > 1e-30f;
-    float ux = ok ? -nux / det : 0.0f;
-    float uy = ok ? -nuy / det : 0.0f;
-    float us = ok ? -nus / det : 0.0f;
-
-    bool conv_now = fabsf(ux) < 0.5f && fabsf(uy) < 0.5f && fabsf(us) < 0.5f;
-    cx = x;
-    cy = y;
-    cl = l;
-    if (!conv_now) {
-      // rint (half to even) then a saturating float->int conversion
-      int nx = wrap_add(x, __float2int_rn(ux));
-      int ny = wrap_add(y, __float2int_rn(uy));
-      int nl = wrap_add(l, __float2int_rn(us));
-      rej = ny < border || ny >= h - border || nx < border || nx >= w - border ||
-            nl < 1 || nl > num_intervals;
-      x = clampi(nx, 1, w - 2);
-      y = clampi(ny, 1, h - 2);
-      l = clampi(nl, 1, num_intervals);
-    }
-    conv = conv_now;
-  }
-  o[0] = x;
-  o[1] = y;
-  o[2] = l;
-  o[3] = cx;
-  o[4] = cy;
-  o[5] = cl;
-  o[6] = conv ? 1 : 0;
-  o[7] = rej ? 1 : 0;
+  const sift::NewtonState s = sift::newton_walk(
+      dog, h, w, border, num_intervals, max_iters, layer[i], ys[i], xs[i]);
+  o[0] = s.x;
+  o[1] = s.y;
+  o[2] = s.l;
+  o[3] = s.cx;
+  o[4] = s.cy;
+  o[5] = s.cl;
+  o[6] = s.conv ? 1 : 0;
+  o[7] = s.rej ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
