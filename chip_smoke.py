@@ -6,8 +6,10 @@ Phases, one JSON line each: card identity; kernel build; the SIFT
 extraction of an 18-image 384x512 synthetic chain with its per-octave
 stage counts beside the capacities and the audited maxima; each CUDA
 kernel against its plain PyTorch version on the inputs that extraction
-gave it at octave 0 of the first image (the v1 orientation kernel on the
-default one's; the descriptor-histogram kernel through its route,
+gave it at octave 0 of the first image (the Newton kernel's integer and
+float lanes; the window gather on both buckets, with the load stage
+each took; the v1 orientation kernel on the default one's; the
+descriptor-histogram kernel through its route,
 ``compute_descriptors_histogram``, on the descriptor stage's keypoints,
 also held against the stitch's GEMM route); the two descriptor routes
 side by side (``descriptor_ab``); the two probe entry points of
@@ -117,6 +119,17 @@ def bound_ms(n_bytes: float, n_flops: float, tf32_flops: float = 0.0):
     t_ops = max(n_flops / H100_F32_FLOP_PER_S,
                 tf32_flops / H100_TF32_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def one_kernel_ms(fn, name: str, attempts: int = 3) -> float:
+    """Device ms of ``fn``, which must run exactly one device kernel per
+    call; a profile that missed some of the calls' kernels is taken
+    again."""
+    for _ in range(attempts):
+        ms, kernels = device_profile(fn)
+        if kernels == 1:
+            return ms
+    raise AssertionError(f"{name}'s wrapper ran {kernels} device kernels per call")
 
 
 def distinct_pixels(stack_shape, layer, rows, cols, mask) -> int:
@@ -242,27 +255,31 @@ def check_kernels(inp: dict):
     cfg, calls = inp["cfg"], inp["calls"]
     rows = []
 
-    # K1: integer lanes bit-exact
+    # K1: integer and float lanes bit-exact, one device kernel per call
     k1_args = calls["localize_newton_resident"][0]
     dog, layer, y, x, cv = k1_args[:5]
     got = K.localize_newton_resident(*k1_args)
     want = K.localize_newton_plain(*k1_args)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(
-            f"K1 integer lanes differ on {int((got != want).any(1).sum())} rows")
+    for lanes, g, r in zip(("integer", "float"), got, want):
+        if not torch.equal(g, r):
+            raise AssertionError(
+                f"K1 {lanes} lanes differ on {int((g != r).any(1).sum())} rows")
     n_k = layer.shape[0]
     iters, cube_values = newton_iterations(dog, layer, y, x, cv, cfg)
-    b, by = bound_ms(n_k * 4 * 4 + n_k * 8 * 4 + cube_values * 4, iters * 122)
+    # reads: layer, y, x (i32) and the validity bytes, the cubes' distinct
+    # values; writes: 8 int32 and 13 f32 lanes per row
+    b, by = bound_ms(n_k * (3 * 4 + 1) + cube_values * 4 + n_k * (8 + 13) * 4,
+                     iters * 122)
+    ms = one_kernel_ms(lambda: K.localize_newton_resident(*k1_args), "K1")
     rows.append(dict(
         name="localize_newton_resident", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
         replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:814",
-        launches=0, max_abs_err=0.0,
-        ms=cuda_ms(lambda: K.localize_newton_resident(*k1_args)),
+        launches=0, max_abs_err=0.0, ms=ms,
         plain_ms=cuda_ms(lambda: K.localize_newton_plain(*k1_args), reps=5),
         bound_ms=b, bound_by=by, library_ms=None,
-        shape=dict(dog=list(dog.shape), candidates=n_k,
+        shape=dict(dog=list(dog.shape), live_rows=n_k,
                    valid=int(cv.sum()), newton_steps=iters,
                    distinct_dog_values=cube_values),
     ))
@@ -320,9 +337,21 @@ def check_kernels(inp: dict):
         inside = ((r_idx < mag.shape[-2])[:, :, None]
                   & (c_idx < mag.shape[-1])[:, None, :])
         distinct = distinct_pixels(mag.shape, wl, r_idx, c_idx, inside)
+        ms = one_kernel_ms(lambda: K.pair_window_gather(*args), "K3")
+        # the cp.async load stage on the same inputs, moved 4 bytes off
+        # 16-byte alignment
+        shifted = [torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+                   for t in (mag, ang)]
+        for src, dst in zip((mag, ang), shifted):
+            dst.copy_(src)
+        s_args = (*shifted, *args[2:])
+        if K.pair_window_load(*shifted) != "cp.async" or not all(
+                torch.equal(g, r) for g, r in zip(K.pair_window_gather(*s_args), want)):
+            raise AssertionError(f"K3 half {half_cap}: cp.async stage differs")
         k3[f"{s}x{s}"] = dict(
             rows=int(wl.shape[0]), distinct_pixels=distinct,
-            ms=cuda_ms(lambda: K.pair_window_gather(*args)),
+            load=K.pair_window_load(mag.contiguous(), ang.contiguous()), ms=ms,
+            cp_async_ms=cuda_ms(lambda: K.pair_window_gather(*s_args)),
             plain_ms=cuda_ms(lambda: K.pair_window_gather_plain(*args), reps=5),
             library_ms=cuda_ms(lambda: ma[l_idx, r_idx[:, :, None],
                                           c_idx[:, None, :]]),
@@ -338,6 +367,7 @@ def check_kernels(inp: dict):
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
         replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:572",
         launches=0, max_abs_err=0.0,
+        load={n: v["load"] for n, v in k3.items()},
         ms=sum(v["ms"] for v in k3.values()),
         plain_ms=sum(v["plain_ms"] for v in k3.values()),
         bound_ms=b, bound_by=by,
@@ -542,8 +572,8 @@ def probe_localize(dev):
     walk = (cfg.image_border_width, cfg.num_intervals, cfg.max_localize_iters)
     n_k = cand[0].shape[0]
     iters, cube_values = newton_iterations(dog, *cand, cfg)
-    # K1's bound plus the 13 float lanes written per row
-    b, by = bound_ms(n_k * 4 * 4 + n_k * 8 * 4 + cube_values * 4 + n_k * 13 * 4,
+    # layer, y, x, valid (i32) and the cubes read, 8 + 13 lanes written
+    b, by = bound_ms(n_k * 4 * 4 + cube_values * 4 + n_k * (8 + 13) * 4,
                      iters * 122)
     rows.append(dict(
         name="localize_resident_r4", route="cuda", source=src,

@@ -4,8 +4,8 @@ JAX nor the test conftest, so on the GPU machine it runs as
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Contracts: the Newton kernel's integer lanes and the window gather bit for
-bit; orientation histograms (both kernels) to rtol 2e-5 / atol 2e-3 and
+Contracts: the Newton kernel's integer and float lanes and the window
+gather (both load stages) bit for bit; orientation histograms (both kernels) to rtol 2e-5 / atol 2e-3 and
 raw descriptor histograms to rtol 1e-5 / atol 1e-3 (reduction order),
 each bit-identical from launch to launch.  The probe kernels
 (``probes/kernels.py``): the stack and cube sums and the float-lane
@@ -42,6 +42,9 @@ def _octave0(dev, h=96, w=128, seed=0):
 
 
 def test_localize_newton_kernel_matches_plain(dev):
+    """Integer and float lanes bit for bit on octave 0 of a synthetic image
+    and on a random (5, 21, 131) stack (W not a multiple of 4); repeated
+    launches identical."""
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
     rng = np.random.default_rng(2)
@@ -54,10 +57,12 @@ def test_localize_newton_kernel_matches_plain(dev):
     for dog, cand in cases:
         assert int(cand[3].sum()) > 0
         n0 = K.LAUNCHES["localize_newton_resident"]
-        got = K.localize_newton_resident(dog, *cand, 5, 3, 5)
-        want = K.localize_newton_plain(dog, *cand, 5, 3, 5)
-        assert torch.equal(got, want)
+        got_i, got_f = K.localize_newton_resident(dog, *cand, 5, 3, 5)
         assert K.LAUNCHES["localize_newton_resident"] == n0 + 1
+        want_i, want_f = K.localize_newton_plain(dog, *cand, 5, 3, 5)
+        assert torch.equal(got_i, want_i) and torch.equal(got_f, want_f)
+        again = K.localize_newton_resident(dog, *cand, 5, 3, 5)
+        assert torch.equal(got_i, again[0]) and torch.equal(got_f, again[1])
 
 
 def test_orientation_histograms_kernel_matches_plain(dev):
@@ -131,19 +136,37 @@ def test_descriptor_histograms_kernel_matches_plain(dev, half_cap):
     assert not got[~valid].any() and (got[valid].amax(1) > 0).sum() > k // 2
 
 
-def test_pair_window_gather_kernel_matches_plain(dev):
+@pytest.mark.parametrize("half,h,w,offset,load", [
+    (28, 200, 300, 0, "tma"),
+    (44, 200, 300, 0, "tma"),
+    (44, 60, 300, 0, "tma"),          # h < S: rows past the stack are zero
+    (10, 97, 120, 0, "tma"),          # S given at run time
+    (28, 60, 301, 0, "cp.async"),     # W not a multiple of 4
+    (44, 60, 301, 0, "cp.async"),
+    (44, 200, 300, 1, "cp.async"),    # stacks at a 4-byte offset
+])
+def test_pair_window_gather_kernel_matches_plain(dev, half, h, w, offset, load):
+    """Bit for bit against the plain version, starts clamped at every
+    edge, more keypoints than the persistent grid has blocks; repeated
+    launches identical."""
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
-    rng = np.random.default_rng(9)
-    for half, (h, w) in ((28, (200, 300)), (44, (60, 300))):
-        mag, ang = (torch.as_tensor(rng.random((3, h, w)).astype(np.float32),
-                                    device=dev) for _ in range(2))
-        idx = [torch.as_tensor(rng.integers(lo, hi, 40).astype(np.int32), device=dev)
-               for lo, hi in ((0, 3), (-5, h + 5), (-5, w + 5))]
-        got = K.pair_window_gather(mag, ang, *idx, half)
-        want = K.pair_window_gather_plain(mag, ang, *idx, half)
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+    rng = np.random.default_rng(9 + half)
+    n = 3 * h * w
+    mag, ang = (torch.as_tensor(rng.random(n + offset).astype(np.float32),
+                                device=dev)[offset:].view(3, h, w) for _ in range(2))
+    assert K.pair_window_load(mag, ang) == load
+    k = 1200
+    idx = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
+           for lo, hi in ((0, 3), (-5, h + 5), (-5, w + 5))]
+    n0 = K.LAUNCHES["pair_window_gather"]
+    got = K.pair_window_gather(mag, ang, *idx, half)
+    assert K.LAUNCHES["pair_window_gather"] == n0 + 1
+    want = K.pair_window_gather_plain(mag, ang, *idx, half)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(got, K.pair_window_gather(mag, ang, *idx, half)):
+        assert torch.equal(a, b)
 
 
 def test_stitch_on_cuda_matches_cpu(dev, tmp_path):
@@ -192,7 +215,7 @@ def test_feas2_cube_sums_kernel_matches_plain(dev):
 
 
 def test_localize_resident_r4_kernel_matches_plain(dev):
-    """Float and integer lanes bit for bit, integer lanes equal to K1's."""
+    """Float and integer lanes bit for bit, and equal to K1's."""
     from vfx_image_stitching_tpu_torch.models.sift import extrema as te
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
     from vfx_image_stitching_tpu_torch.probes import kernels as PK
@@ -207,7 +230,8 @@ def test_localize_resident_r4_kernel_matches_plain(dev):
         assert K.LAUNCHES["localize_resident_r4"] == n0 + 1
         want_f, want_i = PK.localize_resident_r4_lanes_plain(dog, *cand, 5, 3, 5)
         assert torch.equal(outi, want_i) and torch.equal(outf, want_f)
-        assert torch.equal(outi, K.localize_newton_resident(dog, *cand, 5, 3, 5))
+        k1_i, k1_f = K.localize_newton_resident(dog, *cand, 5, 3, 5)
+        assert torch.equal(outi, k1_i) and torch.equal(outf, k1_f)
         again = PK.localize_resident_r4_lanes(dog, *cand, 5, 3, 5)
         assert torch.equal(outf, again[0]) and torch.equal(outi, again[1])
 

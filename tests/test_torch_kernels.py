@@ -64,11 +64,28 @@ def _random_dog():
 
 @pytest.mark.parametrize("case", ["octave", "h21"])
 def test_localize_newton_plain_matches_pallas_interpret(case):
+    """Integer lanes bit for bit on every row; float lanes zero on the
+    invalid rows.  On the valid rows the float lanes are held through
+    what finalization makes of them: the valid mask exact and ``pt_x``,
+    ``pt_y``, ``size``, ``response`` within 1e-6 relative, with ``center``
+    within 1 ulp.  The interpreted JAX kernel's cube values (value / 255)
+    are up to 1 ulp from the correctly rounded quotient, and the central
+    differences and the solve amplify that in the raw lanes (the updates
+    up to ~4e-5 of their largest value here, and any relative size where
+    a lane cancels to near 0), so the raw lanes are not compared one by
+    one: 1e-6 relative is ROADMAP Queue 3 (h)'s tolerance for the same
+    walk in the JAX probe kernel."""
     from vfx_image_stitching_tpu.models.sift.chunking import live_chunk_bound
     from vfx_image_stitching_tpu.models.sift.pallas_kernels import (
         localize_newton_resident as pallas_k1,
     )
+    from vfx_image_stitching_tpu_torch.config import SiftConfig as TCfg
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.models.sift.localize import (
+        FLOAT_LANES,
+        _finalize_localized,
+        state_from_lanes,
+    )
 
     if case == "octave":
         _, dog, (layer, y, x, cv) = _octave_dog()
@@ -76,16 +93,59 @@ def test_localize_newton_plain_matches_pallas_interpret(case):
         dog, (layer, y, x, cv) = _random_dog()
     assert cv.sum() > 0
     chunk = 256
-    _f, outi = pallas_k1(
+    outf, outi = pallas_k1(
         jnp.asarray(dog), jnp.asarray(layer), jnp.asarray(y), jnp.asarray(x),
         jnp.asarray(cv), live_chunk_bound(jnp.asarray(cv), chunk), 5, 3, 5,
         chunk, interpret=True,
     )
-    got = K.localize_newton_resident(
-        torch.as_tensor(dog), *(torch.as_tensor(a) for a in (layer, y, x, cv)),
-        5, 3, 5)
-    assert np.array_equal(got.numpy(), np.asarray(outi)[:, :8])
-    assert got[:, 6].sum() > 0 and (got[:, 7].sum() > 0 or case == "octave")
+    tcv = torch.as_tensor(cv)
+    got_i, got_f = K.localize_newton_resident(
+        torch.as_tensor(dog), *(torch.as_tensor(a) for a in (layer, y, x)),
+        tcv, 5, 3, 5)
+    ref_i = np.array(outi)[:, :8]
+    ref_f = np.array(outf)[:, :13]
+    assert np.array_equal(got_i.numpy(), ref_i)
+    assert got_i[:, 6].sum() > 0 and (got_i[:, 7].sum() > 0 or case == "octave")
+    assert got_f.shape == (len(cv), 13) and np.array_equal(got_f.numpy()[~cv], ref_f[~cv])
+    c = FLOAT_LANES.index("center")
+    assert _ulp(got_f.numpy()[cv, c], ref_f[cv, c]) <= 1
+    got = _finalize_localized(state_from_lanes(got_i, got_f), tcv, 0, TCfg())
+    ref = _finalize_localized(
+        state_from_lanes(torch.as_tensor(ref_i), torch.as_tensor(ref_f)), tcv, 0,
+        TCfg())
+    v = ref.valid.numpy()
+    assert np.array_equal(got.valid.numpy(), v) and v.sum() > 0
+    for name in ("pt_x", "pt_y", "size", "response"):
+        np.testing.assert_allclose(getattr(got, name).numpy()[v],
+                                   getattr(ref, name).numpy()[v], rtol=1e-6,
+                                   atol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["octave", "h21"])
+def test_newton_float_lanes_equal_rederivation(case):
+    """The plain walk's float lanes on the valid rows equal, bit for bit,
+    a re-derivation at the walk's last-compute cell (``_cube_gather`` ->
+    ``_derivatives`` -> ``_solve3``, what ``localize_candidates_resident``
+    computed before it finalized on the lanes), so finalizing on them
+    changes no value."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.models.sift.localize import (
+        _cube_gather,
+        _derivatives,
+        _solve3,
+    )
+
+    if case == "octave":
+        _, dog, cand = _octave_dog()
+    else:
+        dog, cand = _random_dog()
+    dog = torch.as_tensor(dog)
+    layer, y, x, cv = (torch.as_tensor(a) for a in cand)
+    outi, outf = K.localize_newton_resident(dog, layer, y, x, cv, 5, 3, 5)
+    cube = _cube_gather(dog, outi[:, 5], outi[:, 4], outi[:, 3])
+    grad, hess, center = _derivatives(cube)
+    again = torch.stack([*_solve3(hess, grad), *grad, center, *hess], dim=1)
+    assert int(cv.sum()) > 0 and torch.equal(outf[cv], again[cv])
 
 
 @pytest.mark.parametrize("case", ["octave", "h21"])
@@ -201,15 +261,15 @@ def test_assign_orientations_matches_jax():
 
 @pytest.mark.parametrize("half", [28, 44])
 def test_pair_window_gather_plain_matches_pallas_interpret(half):
-    """S = 57 and 89, starts clamped at every edge, a stack narrower than
-    the window."""
+    """S = 57 and 89, starts clamped at every edge, a stack narrower and
+    one lower than the window, a width that is not a multiple of 4."""
     from vfx_image_stitching_tpu.models.sift.pallas_kernels import (
         pair_window_gather as pallas_k3,
     )
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
     rng = np.random.default_rng(half)
-    for h, w in ((97, 120), (60, 300)):
+    for h, w in ((97, 120), (60, 300), (40, 301)):
         mag = (rng.random((3, h, w)) * 100).astype(np.float32)
         ang = (rng.random((3, h, w)) * 360).astype(np.float32)
         k = 13
@@ -224,6 +284,20 @@ def test_pair_window_gather_plain_matches_pallas_interpret(half):
             *(torch.as_tensor(a) for a in (mag, ang, layer, cy, cx)), half)
         for a, b in zip(got, ref):
             assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def test_pair_window_load_stage():
+    """K3's load stage: TMA for 16-byte aligned stacks whose rows are a
+    multiple of 16 bytes, ``cp.async`` for W = 301 or a view at a 4-byte
+    offset."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    mag, ang = torch.zeros((3, 60, 300)), torch.zeros((3, 60, 300))
+    assert K.pair_window_load(mag, ang) == "tma"
+    assert K.pair_window_load(torch.zeros((3, 60, 301)),
+                              torch.zeros((3, 60, 301))) == "cp.async"
+    shifted = torch.zeros(3 * 60 * 300 + 1)[1:].view(3, 60, 300)
+    assert shifted.is_contiguous() and K.pair_window_load(mag, shifted) == "cp.async"
 
 
 def test_descriptors_bucketed_match_jax():

@@ -58,12 +58,11 @@ __global__ void feas2_cube_sums_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// P4: K1's Newton walk, also writing the 13 float lanes of the last compute
-// (replaces _newton_resident_kernel of the probe).  One thread per
-// candidate; invalid candidates get zero rows in both outputs.
+// P4: the Newton walk with its integer lanes and the 13 float lanes of the
+// last compute (replaces _newton_resident_kernel of the probe).  One thread
+// per candidate (sift::newton_walk; K1 runs the same step one warp per
+// candidate); invalid candidates get zero rows in both outputs.
 // ---------------------------------------------------------------------------
-constexpr int P4_FLOATS = 13;
-
 __global__ void localize_resident_r4_kernel(
     const float* __restrict__ dog, int h, int w,
     const int* __restrict__ layer, const int* __restrict__ ys,
@@ -72,27 +71,15 @@ __global__ void localize_resident_r4_kernel(
     int* __restrict__ outi) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= k) return;
-  float* of = outf + (size_t)i * P4_FLOATS;
-  int* oi = outi + (size_t)i * 8;
+  float* of = outf + (size_t)i * sift::NEWTON_FLOATS;
+  int* oi = outi + (size_t)i * sift::NEWTON_INTS;
   if (!valid[i]) {
-    for (int c = 0; c < P4_FLOATS; ++c) of[c] = 0.0f;
-    for (int c = 0; c < 8; ++c) oi[c] = 0;
+    sift::write_zero_lanes(oi, of);
     return;
   }
-  const sift::NewtonState s = sift::newton_walk(
-      dog, h, w, border, num_intervals, max_iters, layer[i], ys[i], xs[i]);
-  oi[0] = s.x;
-  oi[1] = s.y;
-  oi[2] = s.l;
-  oi[3] = s.cx;
-  oi[4] = s.cy;
-  oi[5] = s.cl;
-  oi[6] = s.conv ? 1 : 0;
-  oi[7] = s.rej ? 1 : 0;
-  const float f[P4_FLOATS] = {s.f.ux, s.f.uy, s.f.us, s.f.gx, s.f.gy,
-                              s.f.gs, s.f.center, s.f.dxx, s.f.dyy, s.f.dss,
-                              s.f.dxy, s.f.dxs, s.f.dys};
-  for (int c = 0; c < P4_FLOATS; ++c) of[c] = f[c];
+  sift::write_lanes(sift::newton_walk(dog, h, w, border, num_intervals, max_iters,
+                                      layer[i], ys[i], xs[i]),
+                    oi, of);
 }
 
 // ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@
 // Plain C entry points (loaded with ctypes): each launches on the given
 // stream and returns cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,32 +22,33 @@ using sift::clampi;
 
 // ---------------------------------------------------------------------------
 // K1: per-candidate Newton localization (replaces localize_newton_resident).
-// One thread per candidate runs sift::newton_walk (newton_step.cuh): compute
-// -> store -> converge-check -> move, as localize.newton_step, with a
-// per-candidate early exit.  Only the integer lanes are written.
+// One warp per candidate, K1_WARPS per block (sift::newton_walk_warp): in
+// each step lanes 0-26 load and divide the 27 cube values at once, and
+// every lane runs the same step on the broadcast quotients, so the early
+// exit is the warp's own.  Lane 0 writes the integer lanes and the 13 float
+// lanes of the last compute; invalid candidates get zero rows.  The caller
+// passes only the live leading chunks.
 // ---------------------------------------------------------------------------
-__global__ void localize_newton_kernel(
+constexpr int K1_WARPS = 8;
+
+__global__ void __launch_bounds__(K1_WARPS * 32) localize_newton_kernel(
     const float* __restrict__ dog, int h, int w,
     const int* __restrict__ layer, const int* __restrict__ ys,
-    const int* __restrict__ xs, const int* __restrict__ valid, int k,
-    int border, int num_intervals, int max_iters, int* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  int* o = out + (size_t)i * 8;
+    const int* __restrict__ xs, const unsigned char* __restrict__ valid, int k,
+    int border, int num_intervals, int max_iters, int* __restrict__ outi,
+    float* __restrict__ outf) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * K1_WARPS + (threadIdx.x >> 5);
+  if (i >= k) return;  // whole warps
+  int* oi = outi + (size_t)i * sift::NEWTON_INTS;
+  float* of = outf + (size_t)i * sift::NEWTON_FLOATS;
   if (!valid[i]) {
-    for (int c = 0; c < 8; ++c) o[c] = 0;
+    if (lane == 0) sift::write_zero_lanes(oi, of);
     return;
   }
-  const sift::NewtonState s = sift::newton_walk(
-      dog, h, w, border, num_intervals, max_iters, layer[i], ys[i], xs[i]);
-  o[0] = s.x;
-  o[1] = s.y;
-  o[2] = s.l;
-  o[3] = s.cx;
-  o[4] = s.cy;
-  o[5] = s.cl;
-  o[6] = s.conv ? 1 : 0;
-  o[7] = s.rej ? 1 : 0;
+  const sift::NewtonState s = sift::newton_walk_warp(
+      dog, h, w, border, num_intervals, max_iters, layer[i], ys[i], xs[i], lane);
+  if (lane == 0) sift::write_lanes(s, oi, of);
 }
 
 // ---------------------------------------------------------------------------
@@ -103,31 +105,210 @@ __global__ void __launch_bounds__(K2_THREADS) orientation_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K3: descriptor window gather (replaces pair_window_gather).  One block per
-// keypoint; consecutive threads copy consecutive columns of a window row.
+// K3: descriptor window gather (replaces pair_window_gather).  A persistent
+// grid (the SMs x the blocks that fit) walks the keypoints with a stride.
+// Per keypoint the block loads an (S, B) box of each stack into shared
+// memory: the window's S rows from its clamped start, columns from the
+// start rounded down to 4 floats (TMA takes only an innermost coordinate
+// that is a multiple of 16 bytes), B = S + 3 rounded up to 4 floats so the
+// box covers the window and its rows are multiples of 16 bytes.  The boxes
+// are double-buffered: the next keypoint's load is in flight while the
+// block stores the current one.
+// Loads: TMA (one thread starts a 3-D tensor-map copy per stack that
+// completes on an mbarrier; out-of-bounds elements arrive as zeros), or,
+// where a tensor map cannot describe the stacks (base not 16-byte aligned
+// or W % 4 != 0), 4-byte cp.async by every thread with explicit zeros.
+// Stores: each window is one flat range of S*S floats, written as 16-byte
+// stores at aligned addresses with a scalar head and tail of <= 3 each.
+// The kernel clamps the starts itself and writes sy, sx.
 // ---------------------------------------------------------------------------
-constexpr int K3_THREADS = 128;
+constexpr int K3_THREADS = 512;
 
-__global__ void __launch_bounds__(K3_THREADS) pair_gather_kernel(
-    const float* __restrict__ mag, const float* __restrict__ ang, int h, int w,
-    const int* __restrict__ layer, const int* __restrict__ sys,
-    const int* __restrict__ sxs, int s, float* __restrict__ magw,
-    float* __restrict__ angw) {
-  const int i = blockIdx.x;
-  const int sy = sys[i], sx = sxs[i];
-  const size_t plane = (size_t)layer[i] * h * w;
-  const size_t obase = (size_t)i * s * s;
-  for (int p = threadIdx.x; p < s * s; p += K3_THREADS) {
-    const int row = sy + p / s;
-    const int col = sx + p % s;
-    float m = 0.0f, a = 0.0f;
-    if (row < h && col < w) {
-      const size_t off = plane + (size_t)row * w + col;
-      m = mag[off];
-      a = ang[off];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(float* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// shared-memory offset of flat window element p in an (S, B) box
+__device__ __forceinline__ int box_off(int p, int s, int bw) {
+  const int r = p / s;
+  return r * bw + (p - r * s);
+}
+
+__device__ __forceinline__ float pick4(const float (&v)[4], int i) {
+  return i & 2 ? (i & 1 ? v[3] : v[2]) : (i & 1 ? v[1] : v[0]);
+}
+
+// Window i of both outputs from the current boxes (bm, ba: the window's
+// first element in each box).
+__device__ __forceinline__ void store_windows(const float* __restrict__ bm,
+                                              const float* __restrict__ ba,
+                                              float* __restrict__ gm,
+                                              float* __restrict__ ga, int s, int bw) {
+  const int tid = threadIdx.x;
+  const int ss = s * s;
+  // gm and ga share their alignment (the entry point checks the bases)
+  const int head = min((int)(((16u - ((unsigned)(uintptr_t)gm & 15u)) & 15u) >> 2), ss);
+  const int n4 = (ss - head) >> 2;
+  const int tail = head + 4 * n4;
+  if (tid < head) {
+    const int o = box_off(tid, s, bw);
+    gm[tid] = bm[o];
+    ga[tid] = ba[o];
+  }
+  if (tail + tid < ss) {
+    const int o = box_off(tail + tid, s, bw);
+    gm[tail + tid] = bm[o];
+    ga[tail + tid] = ba[o];
+  }
+  // Thread t stores elements p0..p0+3 but reads them rotated by g, so the
+  // 32 lanes of a warp hit 32 different banks (unrotated, lanes 8 apart
+  // would collide 4 ways).
+  const int g = (tid >> 3) & 3;
+#pragma unroll 2
+  for (int q = tid; q < n4; q += K3_THREADS) {
+    const int p0 = head + 4 * q;
+    float m[4], a[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = box_off(p0 + ((j + g) & 3), s, bw);
+      m[j] = bm[o];
+      a[j] = ba[o];
     }
-    magw[obase + p] = m;
-    angw[obase + p] = a;
+    // element e sits in slot (e - g) & 3
+    *reinterpret_cast<float4*>(gm + p0) = make_float4(
+        pick4(m, -g & 3), pick4(m, (1 - g) & 3), pick4(m, (2 - g) & 3), pick4(m, (3 - g) & 3));
+    *reinterpret_cast<float4*>(ga + p0) = make_float4(
+        pick4(a, -g & 3), pick4(a, (1 - g) & 3), pick4(a, (2 - g) & 3), pick4(a, (3 - g) & 3));
+  }
+}
+
+// S_T: the window size, or 0 for one given at run time.
+template <int S_T, bool TMA>
+__global__ void __launch_bounds__(K3_THREADS) pair_gather_kernel(
+    __grid_constant__ const CUtensorMap mag_map,
+    __grid_constant__ const CUtensorMap ang_map, const float* __restrict__ mag,
+    const float* __restrict__ ang, int n_l, int h, int w,
+    const int* __restrict__ layer, const int* __restrict__ cys,
+    const int* __restrict__ cxs, int k, int s_rt, float* __restrict__ magw,
+    float* __restrict__ angw, int* __restrict__ sys, int* __restrict__ sxs) {
+  extern __shared__ __align__(128) float k3_smem[];
+  const int s = S_T > 0 ? S_T : s_rt;
+  const int bw = (s + 6) & ~3;  // box width B
+  const int half = s >> 1;
+  const int box_pad = (s * bw + 31) & ~31;  // boxes start 128-byte aligned
+  // boxes [stage 0 mag, stage 0 ang, stage 1 mag, stage 1 ang], then 2 mbarriers
+  uint64_t* bars = reinterpret_cast<uint64_t*>(k3_smem + 4 * box_pad);
+  const int row_hi = max(h, s) - s, col_hi = max(w, s) - s;
+  const int tid = threadIdx.x;
+  const CUtensorMap* mag_desc = &mag_map;
+  const CUtensorMap* ang_desc = &ang_map;
+
+  // start the loads of keypoint i's boxes into stage st
+  auto load_boxes = [&](int i, int st) {
+    const int sy = clampi(sift::wrap_add(cys[i], -half), 0, row_hi);
+    const int sx = clampi(sift::wrap_add(cxs[i], -half), 0, col_hi);
+    const int l = layer[i];
+    float* dm = k3_smem + 2 * st * box_pad;
+    float* da = dm + box_pad;
+    if constexpr (TMA) {
+      if (tid == 0) {
+        // order this block's earlier reads of the stage before the async writes
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_expect_tx(&bars[st], 2u * s * bw * 4u);
+        tma_load_3d(dm, mag_desc, &bars[st], sx & ~3, sy, l);
+        tma_load_3d(da, ang_desc, &bars[st], sx & ~3, sy, l);
+      }
+    } else {
+      const bool lok = l >= 0 && l < n_l;
+      dm += sx & 3;
+      da += sx & 3;
+      for (int p = tid; p < s * s; p += K3_THREADS) {
+        const int r = p / s, c = p - r * s;
+        const int o = r * bw + c;
+        if (lok && sy + r < h && sx + c < w) {
+          const size_t gidx = ((size_t)l * h + (sy + r)) * w + (sx + c);
+          cp_async4(dm + o, mag + gidx);
+          cp_async4(da + o, ang + gidx);
+        } else {
+          dm[o] = 0.0f;
+          da[o] = 0.0f;
+        }
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    }
+  };
+
+  if (TMA && tid == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+  if ((int)blockIdx.x < k) load_boxes(blockIdx.x, 0);
+  int it = 0;
+  const int stride = (int)gridDim.x;
+  for (int i = blockIdx.x; i < k; i += stride, ++it) {
+    const int st = it & 1;
+    if (i + stride < k) {
+      load_boxes(i + stride, st ^ 1);
+    } else if (!TMA) {
+      asm volatile("cp.async.commit_group;" ::: "memory");  // keep one group per step
+    }
+    if constexpr (TMA) {
+      mbar_wait(&bars[st], (uint32_t)(it >> 1) & 1u);
+    } else {
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+      __syncthreads();
+    }
+    const int sx = clampi(sift::wrap_add(cxs[i], -half), 0, col_hi);
+    if (tid == 0) {
+      sys[i] = clampi(sift::wrap_add(cys[i], -half), 0, row_hi);
+      sxs[i] = sx;
+    }
+    const size_t obase = (size_t)i * s * s;
+    const float* bm = k3_smem + 2 * st * box_pad + (sx & 3);
+    store_windows(bm, bm + box_pad, magw + obase, angw + obase, s, bw);
+    __syncthreads();  // the stage is free for the load two steps on
   }
 }
 
@@ -283,19 +464,101 @@ __global__ void __launch_bounds__(K5_THREADS) descriptor_kernel(
     out[(size_t)i * n_out + b] = part[b * K5_THREADS];
 }
 
+// ---------------------------------------------------------------------------
+// K3's host side: the tensor maps and the launch.
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// An (L, H, W) f32 stack as a 3-D tensor map with a (B, S, 1) box.
+int make_window_map(CUtensorMap* map, const void* base, int n_l, int h, int w, int s) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n_l};
+  const cuuint64_t strides[2] = {(cuuint64_t)w * 4, (cuuint64_t)w * h * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)((s + 6) & ~3), (cuuint32_t)s, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                            const_cast<void*>(base), dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+struct PairGatherArgs {
+  const float* mag;
+  const float* ang;
+  int n_l, h, w;
+  const int* layer;
+  const int* cy;
+  const int* cx;
+  int k, s;
+  float* magw;
+  float* angw;
+  int* sy;
+  int* sx;
+};
+
+template <int S_T, bool TMA>
+int launch_pair_gather(const CUtensorMap& mag_map, const CUtensorMap& ang_map,
+                       const PairGatherArgs& a, cudaStream_t stream) {
+  auto kernel = pair_gather_kernel<S_T, TMA>;
+  const int box_pad = (a.s * ((a.s + 6) & ~3) + 31) & ~31;
+  const int smem = 4 * box_pad * (int)sizeof(float) + 2 * (int)sizeof(uint64_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K3_THREADS,
+                                                           smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = a.k < sms * per_sm ? a.k : sms * per_sm;
+  kernel<<<grid, K3_THREADS, smem, stream>>>(
+      mag_map, ang_map, a.mag, a.ang, a.n_l, a.h, a.w, a.layer, a.cy, a.cx, a.k, a.s,
+      a.magw, a.angw, a.sy, a.sx);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int sift_localize_newton(const void* dog, int h, int w, const void* layer,
                          const void* y, const void* x, const void* valid, int k,
-                         int border, int num_intervals, int max_iters, void* out,
-                         void* stream) {
-  const int threads = 64;
-  localize_newton_kernel<<<(k + threads - 1) / threads, threads, 0,
+                         int border, int num_intervals, int max_iters, void* outi,
+                         void* outf, void* stream) {
+  localize_newton_kernel<<<(k + K1_WARPS - 1) / K1_WARPS, K1_WARPS * 32, 0,
                            (cudaStream_t)stream>>>(
       (const float*)dog, h, w, (const int*)layer, (const int*)y, (const int*)x,
-      (const int*)valid, k, border, num_intervals, max_iters, (int*)out);
+      (const unsigned char*)valid, k, border, num_intervals, max_iters, (int*)outi,
+      (float*)outf);
   return (int)cudaGetLastError();
 }
 
@@ -312,13 +575,30 @@ int sift_orientation_histograms(const void* mag, const void* ang, int h, int w,
   return (int)cudaGetLastError();
 }
 
-int sift_pair_window_gather(const void* mag, const void* ang, int h, int w,
-                            const void* layer, const void* sy, const void* sx,
-                            int k, int s, void* magw, void* angw, void* stream) {
-  pair_gather_kernel<<<k, K3_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)mag, (const float*)ang, h, w, (const int*)layer,
-      (const int*)sy, (const int*)sx, s, (float*)magw, (float*)angw);
-  return (int)cudaGetLastError();
+int sift_pair_window_gather(const void* mag, const void* ang, int n_l, int h,
+                            int w, const void* layer, const void* cy,
+                            const void* cx, int k, int s, int use_tma, void* magw,
+                            void* angw, void* sy, void* sx, void* stream) {
+  if (s < 1 || (((uintptr_t)magw | (uintptr_t)angw) & 15u)) return (int)cudaErrorInvalidValue;
+  CUtensorMap mag_map{}, ang_map{};
+  if (use_tma) {
+    if ((((uintptr_t)mag | (uintptr_t)ang) & 15u) || w % 4) return (int)cudaErrorInvalidValue;
+    int err = make_window_map(&mag_map, mag, n_l, h, w, s);
+    if (err == 0) err = make_window_map(&ang_map, ang, n_l, h, w, s);
+    if (err != 0) return err;
+  }
+  const PairGatherArgs args{(const float*)mag, (const float*)ang, n_l, h, w,
+                            (const int*)layer, (const int*)cy, (const int*)cx, k, s,
+                            (float*)magw, (float*)angw, (int*)sy, (int*)sx};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (s == 57)
+    return use_tma ? launch_pair_gather<57, true>(mag_map, ang_map, args, st)
+                   : launch_pair_gather<57, false>(mag_map, ang_map, args, st);
+  if (s == 89)
+    return use_tma ? launch_pair_gather<89, true>(mag_map, ang_map, args, st)
+                   : launch_pair_gather<89, false>(mag_map, ang_map, args, st);
+  return use_tma ? launch_pair_gather<0, true>(mag_map, ang_map, args, st)
+                 : launch_pair_gather<0, false>(mag_map, ang_map, args, st);
 }
 
 int sift_orientation_histograms_v1(const void* mag, const void* ang, int h,

@@ -53,6 +53,13 @@ class Localized(NamedTuple):
     jl: torch.Tensor         # i32
 
 
+# float lanes of one Newton compute, in the TPU kernel's lane order
+FLOAT_LANES = ("ux", "uy", "us", "gx", "gy", "gs", "center",
+               "dxx", "dyy", "dss", "dxy", "dxs", "dys")
+# integer lanes: final cell, last-compute cell, converged, rejected
+INT_LANES = ("x", "y", "l", "cx", "cy", "cl", "converged", "rejected")
+
+
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` correctly rounded on every device.
 
@@ -191,6 +198,16 @@ def _init_state(layer: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> dict:
     return st
 
 
+def state_from_lanes(outi: torch.Tensor, outf: torch.Tensor) -> dict:
+    """A Newton state dict from a walk's (K, 8) int32 and (K, 13) f32
+    lanes (:data:`INT_LANES`, :data:`FLOAT_LANES`)."""
+    st = {n: outi[:, j] for j, n in enumerate(INT_LANES)}
+    st["converged"] = st["converged"] != 0
+    st["rejected"] = st["rejected"] != 0
+    st.update({n: outf[:, j] for j, n in enumerate(FLOAT_LANES)})
+    return st
+
+
 def _finalize_localized(
     st: dict, cand_valid: torch.Tensor, octave: int, cfg: SiftConfig
 ) -> Localized:
@@ -278,14 +295,17 @@ def localize_candidates_resident(
     """Per-candidate Newton localization on the resident-stack kernel.
 
     The kernel (:func:`kernels.localize_newton_resident`) runs the whole
-    Newton walk of each candidate with its own early exit.  Only its
-    INTEGER state (final cell, last-compute cell, converged/rejected) is
-    consumed; every float lane is re-derived here by re-gathering the
-    3x3x3 cube at the last-compute cell and running :func:`_derivatives`
-    and :func:`_solve3`, exactly as the JAX package's resident path does,
-    so a float wobble inside the kernel can never reach the output.
-    Octaves with h < 16 (which carry no candidates at border width 5)
-    take the plain path, as in the JAX package.
+    Newton walk of each candidate of the live leading chunks with its own
+    early exit, and returns its integer lanes (final cell, last-compute
+    cell, converged/rejected) and the float lanes of its last compute,
+    which are finalized as they are: no cube is gathered again.  The JAX
+    package re-derives the floats at the last-compute cell instead,
+    because the TPU kernel's floats drift; the card's walk is bit-exact
+    against the plain walk, which is what CPU tensors run, so both
+    devices give the re-derivation's values on every valid row.  Rows of
+    dead chunks come out as zero, ``valid=False`` rows.  Octaves with
+    h < 16 (which carry no candidates at border width 5) take the plain
+    path, as in the JAX package.
     """
     if dog.shape[-2] < 16:
         return localize_candidates_chunked(
@@ -297,22 +317,11 @@ def localize_candidates_resident(
 
     k = layer.shape[0]
     chunk = chunk_size(k, chunk)
-    outi = localize_newton_resident(
-        dog, layer, y, x, cand_valid,
+    n_rows = live_chunk_bound(cand_valid, chunk) * chunk
+    live = cand_valid[:n_rows]
+    outi, outf = localize_newton_resident(
+        dog, layer[:n_rows], y[:n_rows], x[:n_rows], live,
         cfg.image_border_width, cfg.num_intervals, cfg.max_localize_iters,
     )
-    n_rows = live_chunk_bound(cand_valid, chunk) * chunk
-    xs, ys, ls, cx, cy, cl, conv, rej = outi[:n_rows].unbind(1)
-    cube = _cube_gather(dog, cl, cy, cx)
-    (gx, gy, gs), hess, center = _derivatives(cube)
-    ux, uy, us = _solve3(hess, (gx, gy, gs))
-    (dxx, dyy, dss, dxy, dxs, dys) = hess
-    st = dict(
-        x=xs, y=ys, l=ls, cx=cx, cy=cy, cl=cl,
-        converged=conv != 0, rejected=rej != 0,
-        ux=ux, uy=uy, us=us, gx=gx, gy=gy, gs=gs,
-        dxx=dxx, dyy=dyy, dss=dss, dxy=dxy, dxs=dxs, dys=dys,
-        center=center,
-    )
-    loc = _finalize_localized(st, cand_valid[:n_rows], octave, cfg)
+    loc = _finalize_localized(state_from_lanes(outi, outf), live, octave, cfg)
     return zero_pad_rows(loc, k)

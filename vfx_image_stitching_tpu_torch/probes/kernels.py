@@ -50,12 +50,14 @@ design does about it):
     rolls are VMEM alignment workarounds.
 
 ``localize_resident_r4_lanes`` (P4) replaces ``_newton_resident_kernel``:
-    K1's per-candidate Newton walk (``csrc/newton_step.cuh``, shared with
-    K1 so the two cannot drift apart), also writing the 13 float lanes of
-    the last compute.  Built with ``-fmad=false`` and correctly rounded
-    division, those lanes follow the plain version's operations one by
-    one.  Bounded, like K1, by the latency of its dependent cube loads;
-    rows past the live chunks need no count: every invalid row is zero.
+    K1's function, the Newton walk with its integer lanes and the 13
+    float lanes of the last compute, one thread per candidate over every
+    slot (K1 runs the same step, ``csrc/newton_step.cuh``, one warp per
+    candidate over the live chunks, so the two cannot drift apart).
+    Built with ``-fmad=false`` and correctly rounded division, the float
+    lanes follow the plain version's operations one by one.  Bounded by
+    the latency of its dependent cube loads; rows past the live chunks
+    need no count: every invalid row is zero.
 """
 
 from __future__ import annotations
@@ -71,15 +73,12 @@ from vfx_image_stitching_tpu_torch.models.sift.kernels import (
     _require,
     _same_device,
     _window_coords,
-    newton_int_lanes,
-    newton_walk_plain,
+    localize_newton_plain,
 )
-
-# float lanes of one Newton compute, in the probe kernel's lane order
-FLOAT_LANES = ("ux", "uy", "us", "gx", "gy", "gs", "center",
-               "dxx", "dyy", "dss", "dxy", "dxs", "dys")
-# integer lanes, as K1's
-INT_LANES = ("x", "y", "l", "cx", "cy", "cl", "converged", "rejected")
+from vfx_image_stitching_tpu_torch.models.sift.localize import (  # noqa: F401
+    FLOAT_LANES,
+    INT_LANES,
+)
 
 P1_HALF = 28              # the small bucket's half_cap (config.desc_small_half)
 P1_S = 2 * P1_HALF + 1
@@ -173,15 +172,13 @@ def localize_resident_r4_lanes_plain(
     dog: torch.Tensor, layer: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
     cand_valid: torch.Tensor, border: int, num_intervals: int, max_iters: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: the masked Newton loop
-    (``kernels.newton_walk_plain``); ``(K, 13)`` f32 lanes
-    (:data:`FLOAT_LANES`, of the last compute) and ``(K, 8)`` int32 lanes
+    """Plain version: K1's (``kernels.localize_newton_plain``), lanes in
+    the probe's order, ``(K, 13)`` f32 lanes (:data:`FLOAT_LANES`, of
+    the last compute) and ``(K, 8)`` int32 lanes
     (:data:`INT_LANES`); invalid candidates give zero rows."""
-    st = newton_walk_plain(dog, layer, y, x, cand_valid, border,
-                           num_intervals, max_iters)
-    floats = torch.stack([st[n] for n in FLOAT_LANES], dim=1)
-    floats = torch.where(cand_valid[:, None], floats, torch.zeros_like(floats))
-    return floats, newton_int_lanes(st, cand_valid)
+    outi, outf = localize_newton_plain(dog, layer, y, x, cand_valid, border,
+                                       num_intervals, max_iters)
+    return outf, outi
 
 
 def localize_resident_r4_lanes(

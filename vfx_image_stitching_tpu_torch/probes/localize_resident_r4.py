@@ -11,9 +11,9 @@ MB beside the L2's (the H100's answer to the TPU's "does the whole stack
 fit in VMEM").  ``feas2``: the 3x3x3 cube sums of 2048 candidates (P3),
 bit-exact against the plain version and the probe's own check.
 ``newton``: every octave of the synthetic chain's image 0
-(``utils.synthetic``) localized by the Newton kernel that also
-writes its float lanes (P4) followed by the stock finalization, against
-the plain chunked path on the valid rows, and P4's integer lanes against
+(``utils.synthetic``) localized by the probe's Newton kernel (P4)
+followed by the stock finalization, against the plain chunked path on
+the valid rows, K1's lanes against the plain walk's and P4's against
 K1's.  On the card each phase also reports device times
 (``utils.timing.cuda_ms``).  JSON lines on stdout; nothing is written.
 """
@@ -35,6 +35,7 @@ from vfx_image_stitching_tpu_torch.models.sift.localize import (
     _finalize_localized,
     localize_candidates_chunked,
     localize_candidates_resident,
+    state_from_lanes,
 )
 from vfx_image_stitching_tpu_torch.probes import kernels as PK
 
@@ -140,11 +141,8 @@ def finalize_lanes(outf: torch.Tensor, outi: torch.Tensor,
                    cfg: SiftConfig) -> Localized:
     """The stock finalization on the kernel's own lanes: no cube is
     gathered again and no float recomputed."""
-    st = {n: outi[:, j] for j, n in enumerate(PK.INT_LANES)}
-    st["converged"] = st["converged"] != 0
-    st["rejected"] = st["rejected"] != 0
-    st.update({n: outf[:, j] for j, n in enumerate(PK.FLOAT_LANES)})
-    return _finalize_localized(st, cand_valid, octave, cfg)
+    return _finalize_localized(state_from_lanes(outi, outf), cand_valid,
+                               octave, cfg)
 
 
 def localize_resident_r4(dog: torch.Tensor, layer: torch.Tensor,
@@ -225,8 +223,8 @@ def octave_inputs(dev, chain: dict = None):
 def compare_octave(dog, cand, octave: int, cfg: SiftConfig) -> dict:
     """P4 + finalize against the plain chunked path on its valid rows
     (integer fields exact; float fields: rows not bit-exact and the
-    largest ulp), P4's lanes against the plain version's, and P4's
-    integer lanes against K1's."""
+    largest ulp), P4's lanes against the plain version's, K1's integer
+    and float lanes against the plain version's, and P4's against K1's."""
     from vfx_image_stitching_tpu_torch.models.sift.kernels import (
         localize_newton_resident,
     )
@@ -236,12 +234,15 @@ def compare_octave(dog, cand, octave: int, cfg: SiftConfig) -> dict:
     res = finalize_lanes(outf, outi, cand[3], octave, cfg)
     plain = localize_candidates_chunked(dog, *cand, octave, cfg)
     plain_f, plain_i = PK.localize_resident_r4_lanes_plain(dog, *cand, *walk)
-    k1 = localize_newton_resident(dog, *cand, *walk)
+    k1_i, k1_f = localize_newton_resident(dog, *cand, *walk)
     v = plain.valid
     out = dict(octave=octave, dog=list(dog.shape), candidates=int(cand[3].sum()),
                rows=int(v.sum()),
                valid_mask_equal=bool(torch.equal(res.valid, v)),
-               int_lanes_equal_k1=bool(torch.equal(outi, k1)),
+               int_lanes_equal_k1=bool(torch.equal(outi, k1_i)),
+               float_lanes_equal_k1=bool(torch.equal(outf, k1_f)),
+               k1_lanes_equal_plain=bool(torch.equal(k1_i, plain_i)
+                                         and torch.equal(k1_f, plain_f)),
                int_lanes_equal_plain=bool(torch.equal(outi, plain_i)),
                float_lanes_rows_not_exact=int((outf != plain_f).any(1).sum()),
                float_lanes_max_ulp=int(ulp_diff(outf, plain_f).max()) if outf.numel() else 0,
@@ -257,6 +258,7 @@ def compare_octave(dog, cand, octave: int, cfg: SiftConfig) -> dict:
         out["float_max_ulp"][name] = int(ulp_diff(a, b).max()) if a.numel() else 0
     # tests/test_sift.py:328-396: all bit-exact but response (<= 4 ulp)
     out["ok"] = (out["valid_mask_equal"] and out["int_lanes_equal_k1"]
+                 and out["float_lanes_equal_k1"] and out["k1_lanes_equal_plain"]
                  and not out["int_mismatches"]
                  and all(out["float_rows_not_exact"][n] == 0
                          for n in ("pt_x", "pt_y", "size"))
@@ -267,9 +269,9 @@ def compare_octave(dog, cand, octave: int, cfg: SiftConfig) -> dict:
 def newton(dev, chain: dict = None, timer=None, inputs=None) -> dict:
     """Every octave of the chain's image 0 (:func:`compare_octave`; or
     ``inputs``, :func:`octave_inputs`' result); with ``timer`` (``fn ->
-    ms``), device ms on octave 0 of P4 + finalize, of K1 + the float
-    recomputation (the stitch's ``localize_candidates_resident``) and of
-    the plain chunked path."""
+    ms``), device ms on octave 0 of P4 + finalize, of K1's float lanes +
+    finalize (the stitch's ``localize_candidates_resident``) and of the
+    plain chunked path."""
     dev = torch.device(dev)
     cfg, octaves = inputs or octave_inputs(dev, chain)
     per_octave = [compare_octave(dog, cand, o, cfg) for o, dog, cand in octaves]
