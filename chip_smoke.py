@@ -7,8 +7,10 @@ extraction of an 18-image 384x512 synthetic chain with its per-octave
 stage counts beside the capacities and the audited maxima; each CUDA
 kernel against its plain PyTorch version on the inputs that extraction
 gave it at octave 0 of the first image (the Newton kernel's integer and
-float lanes; the window gather on both buckets, with the load stage
-each took; the v1 orientation kernel on the default one's; the
+float lanes; the two orientation kernels, K2 staged and K4 unstaged, on
+the default one's inputs at 36 and 128 bins and against each other; the
+window gather on both buckets, with the load stage each took, and its
+direct stage at S = 119 and 161 on the big bucket's rows; the
 descriptor-histogram kernel through its route,
 ``compute_descriptors_histogram``, on the descriptor stage's keypoints,
 also held against the stitch's GEMM route); the two descriptor routes
@@ -17,13 +19,15 @@ side by side (``descriptor_ab``); the two probe entry points of
 sum, cube sums and float-lane Newton kernels, P2-P4; ``probe_desc``: the
 tensor-core descriptor histogram, P1, also against K5 on the chain's
 small-bucket rows); then the end-to-end stitch of the chain (one
-warm-up, timed runs, launch counts, a profiled run, a CUDA-vs-CPU check
-on the first four images, and those four again with
-``VFX_ORIENT_V2=0``).  Each path's run must launch its kernels and no
-other (``PATHS``), and each kernel row reports the launches of its
-path's run.  The line before the last is the kernel table; the last line
-is ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
-script then exits non-zero; without CUDA it exits non-zero at once.
+warm-up, timed runs, launch counts, a profiled run, the whole chain on
+the CPU against the card's first run, shifts, pairs, escalation counts
+and bytes; the first four images on the card and the CPU, and those four
+again with ``VFX_ORIENT_V2=0``).  Each path's run must launch its
+kernels and no other (``PATHS``), and each kernel row reports the
+launches of its path's run.  The line before the last is the kernel
+table; the last line is ``{"ok": true, "device": {...}}``.  Any failed
+check raises, and the script then exits non-zero; without CUDA it exits
+non-zero at once.
 
 The synthetic chain (``vfx_image_stitching_tpu_torch/utils/synthetic.py``)
 and the device timer (``utils/timing.py``) are the port's.
@@ -92,6 +96,11 @@ K5_OPS_PER_SAMPLE = 49
 # orientation bin 3, three floors, three fractions, two complements and
 # the 16 spatial products of its A operand
 P1_OPS_PER_SAMPLE = 45
+# float operations of K2 and K4 per masked sample: the squared distance
+# (two products, a sum, a conversion), the weight (a product and exp,
+# counted once), its product with the magnitude, the bin (a product and
+# a rounding) and the add into the bin
+ORIENT_OPS_PER_SAMPLE = 10
 # P1's tensor-core work per masked sample: its column of the (16 cells,
 # 8 bins) product, once per TF32 pass (the TPU kernel's 64-wide padding
 # of each window row is a BlockSpec workaround the kernel does not have)
@@ -245,8 +254,10 @@ def mark_cubes(hit, layer, y, x) -> None:
 
 def check_kernels(inp: dict):
     """Each kernel against its plain version on the card, with times, on
-    the inputs the path gave it at octave 0 of image 0 (K4 on K2's; K5 on
-    the histogram route's inputs for the descriptor stage's keypoints).
+    the inputs the path gave it at octave 0 of image 0 (K4 on K2's, also
+    against K2, both also at 128 bins; K3's direct stage on its big
+    bucket's rows at S = 119 and 161; K5 on the histogram route's inputs
+    for the descriptor stage's keypoints).
     Returns the kernel rows and the launches of the histogram route's run."""
     import torch
 
@@ -285,13 +296,9 @@ def check_kernels(inp: dict):
     ))
     emit(dict(phase="kernel", **rows[-1]))
 
-    # K2: rtol 2e-5, atol 2e-3
+    # K2 and K4 (the same function, staged and unstaged) on K2's inputs
     k2_args = calls["orientation_histograms"][0]
     mag, ang, lyr, cy, cx, radius, wf, valid, half, nb = k2_args
-    got = K.orientation_histograms(*k2_args)
-    want = K.orientation_histograms_plain(*k2_args)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
-    err = float((got - want).abs().max()) if got.numel() else 0.0
     h, w = mag.shape[-2:]
     s = 2 * half + 1
     rows_w = torch.arange(s, device=mag.device)
@@ -302,21 +309,50 @@ def check_kernels(inp: dict):
     in_y = ((rr - cy[:, None]).abs() <= radius[:, None]) & (rr >= 1) & (rr <= h - 2)
     in_x = ((cc - cx[:, None]).abs() <= radius[:, None]) & (cc >= 1) & (cc <= w - 2)
     mask = in_y[:, :, None] & in_x[:, None, :] & valid[:, None, None]
-    pixels = int(mask.sum())
+    samples = int(mask.sum())
     distinct = distinct_pixels(mag.shape, lyr, rr, cc, mask)
     n_k = lyr.shape[0]
-    b, by = bound_ms(distinct * 8 + n_k * 6 * 4 + n_k * nb * 4, pixels * 10)
-    rows.append(dict(
-        name="orientation_histograms", route="cuda",
-        source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
-        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:161",
-        launches=0, max_abs_err=err,
-        ms=cuda_ms(lambda: K.orientation_histograms(*k2_args)),
-        plain_ms=cuda_ms(lambda: K.orientation_histograms_plain(*k2_args), reps=5),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape=dict(stack=list(mag.shape), rows=n_k, valid=int(valid.sum()),
-                   window=s, masked_pixels=pixels, distinct_pixels=distinct),
-    ))
+    # reads: the distinct masked pixels of both stacks, 4 int32 + 1 f32 +
+    # the validity byte per row; writes: the histograms
+    b, by = bound_ms(distinct * 8 + n_k * (5 * 4 + 1) + n_k * nb * 4,
+                     samples * ORIENT_OPS_PER_SAMPLE)
+    want = K.orientation_histograms_plain(*k2_args)
+    want128 = K.orientation_histograms_plain(*k2_args[:-1], 128)
+    plain_ms = cuda_ms(lambda: K.orientation_histograms_plain(*k2_args), reps=5)
+    orient = {}
+    for name, fn, tag in (("orientation_histograms", K.orientation_histograms, "K2"),
+                          ("orientation_histograms_v1", K.orientation_histograms_v1,
+                           "K4")):
+        got = fn(*k2_args)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
+        if not torch.equal(got, fn(*k2_args)):
+            raise AssertionError(f"{tag}: repeated launches differ")
+        got128 = fn(*k2_args[:-1], 128)
+        torch.testing.assert_close(got128, want128, rtol=2e-5, atol=2e-3)
+        orient[tag] = got
+        rows.append(dict(
+            name=name, route="cuda",
+            source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
+            replaces=("vfx_image_stitching_tpu/models/sift/pallas_kernels.py:"
+                      + ("161" if tag == "K2" else "246")),
+            launches=0, max_abs_err=float((got - want).abs().max()),
+            load=(K.orientation_load(mag, ang, half, nb) if tag == "K2"
+                  else "direct"),
+            ms=one_kernel_ms(lambda: fn(*k2_args), tag),
+            plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+            shape=dict(stack=list(mag.shape), rows=n_k, valid=int(valid.sum()),
+                       window=s, num_bins=nb, masked_samples=samples,
+                       distinct_pixels=distinct,
+                       max_abs_err_128_bins=float((got128 - want128).abs().max()),
+                       ms_128_bins=one_kernel_ms(lambda: fn(*k2_args[:-1], 128), tag)),
+        ))
+    torch.testing.assert_close(orient["K2"], orient["K4"], rtol=2e-5, atol=2e-3)
+    rows[-2]["shape"]["vs_k4_max_abs_err"] = float(
+        (orient["K2"] - orient["K4"]).abs().max())
+    sweep = orientation_sweep(mag, ang, half, nb)
+    for row, tag in zip(rows[-2:], ("K2", "K4")):
+        row["shape"]["radius_sweep"] = sweep[tag]
+    emit(dict(phase="kernel", **rows[-2]))
     emit(dict(phase="kernel", **rows[-1]))
 
     # K3: bit-exact, both window sizes, summed
@@ -345,12 +381,12 @@ def check_kernels(inp: dict):
         for src, dst in zip((mag, ang), shifted):
             dst.copy_(src)
         s_args = (*shifted, *args[2:])
-        if K.pair_window_load(*shifted) != "cp.async" or not all(
+        if K.pair_window_load(*shifted, s) != "cp.async" or not all(
                 torch.equal(g, r) for g, r in zip(K.pair_window_gather(*s_args), want)):
             raise AssertionError(f"K3 half {half_cap}: cp.async stage differs")
         k3[f"{s}x{s}"] = dict(
             rows=int(wl.shape[0]), distinct_pixels=distinct,
-            load=K.pair_window_load(mag.contiguous(), ang.contiguous()), ms=ms,
+            load=K.pair_window_load(mag.contiguous(), ang.contiguous(), s), ms=ms,
             cp_async_ms=cuda_ms(lambda: K.pair_window_gather(*s_args)),
             plain_ms=cuda_ms(lambda: K.pair_window_gather_plain(*args), reps=5),
             library_ms=cuda_ms(lambda: ma[l_idx, r_idx[:, :, None],
@@ -362,33 +398,33 @@ def check_kernels(inp: dict):
     if len(k3) != 2:
         raise AssertionError(f"K3 ran for {sorted(k3)} windows, not both buckets")
     b, by = bound_ms(sum(v["bytes"] for v in k3.values()), 0.0)
+    # the direct stage (S past the staged limit of 117) on the big
+    # bucket's rows: bit-exact, one device kernel per call
+    big_half = max(k[1] for k in calls if k[0] == "pair_window_gather")
+    big_args = calls[("pair_window_gather", big_half)][0]
+    direct = {}
+    for half_cap in (59, 80):
+        d_args = (*big_args[:5], half_cap)
+        s = 2 * half_cap + 1
+        if K.pair_window_load(*big_args[:2], s) != "direct" or not all(
+                torch.equal(g, r) for g, r in zip(K.pair_window_gather(*d_args),
+                                                  K.pair_window_gather_plain(*d_args))):
+            raise AssertionError(f"K3 S {s}: direct stage differs")
+        direct[f"{s}x{s}"] = dict(
+            load="direct", rows=int(big_args[2].shape[0]),
+            ms=one_kernel_ms(lambda: K.pair_window_gather(*d_args), "K3 direct"),
+            written_bytes=2 * int(big_args[2].shape[0]) * s * s * 4)
     rows.append(dict(
         name="pair_window_gather", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
         replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:572",
         launches=0, max_abs_err=0.0,
-        load={n: v["load"] for n, v in k3.items()},
+        load={n: v["load"] for n, v in (*k3.items(), *direct.items())},
         ms=sum(v["ms"] for v in k3.values()),
         plain_ms=sum(v["plain_ms"] for v in k3.values()),
         bound_ms=b, bound_by=by,
         library_ms=sum(v["library_ms"] for v in k3.values()),
-        shape=dict(buckets=k3, stack=list(mag.shape)),
-    ))
-    emit(dict(phase="kernel", **rows[-1]))
-
-    # K4 on K2's inputs (so K2's row's bound and shape): rtol 2e-5,
-    # atol 2e-3, repeated launches bit-identical
-    got = K.orientation_histograms_v1(*k2_args)
-    want = K.orientation_histograms_plain(*k2_args)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
-    if not torch.equal(got, K.orientation_histograms_v1(*k2_args)):
-        raise AssertionError("K4: repeated launches differ")
-    rows.append(dict(
-        rows[1], name="orientation_histograms_v1",
-        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:246",
-        max_abs_err=float((got - want).abs().max()) if got.numel() else 0.0,
-        ms=cuda_ms(lambda: K.orientation_histograms_v1(*k2_args)),
-        plain_ms=cuda_ms(lambda: K.orientation_histograms_plain(*k2_args), reps=5),
+        shape=dict(buckets=k3, stack=list(mag.shape), direct_big_rows=direct),
     ))
     emit(dict(phase="kernel", **rows[-1]))
 
@@ -396,6 +432,40 @@ def check_kernels(inp: dict):
     rows.append(row)
     emit(dict(phase="kernel", **row))
     return rows, k5_launches
+
+
+def orientation_sweep(mag, ang, half: int, nb: int, seed: int = 7) -> dict:
+    """K2's and K4's device ms on the path's fields with every keypoint
+    valid and at one radius, 0 or 17 (the audited maximum), for 132
+    keypoints (about one warp a scheduler: a keypoint's latency) and
+    1536 (the path's rows), and what a lane's sample costs: the time
+    between the two radii over the 35^2 / 32 samples a lane walks at
+    radius 17."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    rng = np.random.default_rng(seed)
+    h, w = mag.shape[-2:]
+    out = {"K2": {}, "K4": {}}
+    for k in (132, 1536):
+        idx = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32),
+                               device=mag.device)
+               for lo, hi in ((0, mag.shape[0]), (half, h - half), (half, w - half))]
+        wf = torch.full((k,), -0.5 / 6.0 ** 2, device=mag.device)
+        valid = torch.ones(k, dtype=torch.bool, device=mag.device)
+        for r in (0, 17):
+            rad = torch.full((k,), r, dtype=torch.int32, device=mag.device)
+            args = (mag, ang, *idx, rad, wf, valid, half, nb)
+            want = K.orientation_histograms_plain(*args)
+            for tag, fn in (("K2", K.orientation_histograms),
+                            ("K4", K.orientation_histograms_v1)):
+                torch.testing.assert_close(fn(*args), want, rtol=2e-5, atol=2e-3)
+                out[tag][f"k{k}_r{r}_ms"] = cuda_ms(lambda: fn(*args))
+    for v in out.values():
+        v["us_per_lane_sample_k132"] = (
+            (v["k132_r17_ms"] - v["k132_r0_ms"]) * 1e3 / (35 * 35 / 32))
+    return out
 
 
 def check_descriptor_histograms(calls: dict):
@@ -777,6 +847,22 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
     emit(out)
 
     emit(profile_stitch(folder, out["median_s"]))
+
+    # the whole chain on the CPU against the card's first run: equal
+    # shifts, pairs, escalation counts and panorama bytes
+    t0 = time.time()
+    cpu = run_stitch(folder, "cpu")
+    cpu_s = time.time() - t0
+    esc = ("esc_n_pairs", "esc_n_rows")
+    same = (res.shifts == cpu.shifts and res.pairs == cpu.pairs
+            and all(res.timings[k] == cpu.timings[k] for k in esc)
+            and np.array_equal(res.panorama, cpu.panorama))
+    emit(dict(phase="cuda_vs_cpu_chain", images=N_IMAGES, equal=same, cpu_s=cpu_s,
+              escalated={d: {k: int(r.timings[k]) for k in esc}
+                         for d, r in (("cuda", res), ("cpu", cpu))},
+              cuda_shifts=res.shifts, cpu_shifts=cpu.shifts))
+    if not same:
+        raise AssertionError("CUDA and CPU runs of the whole chain differ")
 
     # first four images on the card and on the CPU: equal shifts, same bytes
     sub = os.path.join(work, "chain4")

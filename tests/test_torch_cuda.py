@@ -5,7 +5,8 @@ JAX nor the test conftest, so on the GPU machine it runs as
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Contracts: the Newton kernel's integer and float lanes and the window
-gather (both load stages) bit for bit; orientation histograms (both kernels) to rtol 2e-5 / atol 2e-3 and
+gather (all three load stages) bit for bit; orientation histograms (both
+kernels, 36 and 128 bins, each load stage) to rtol 2e-5 / atol 2e-3 and
 raw descriptor histograms to rtol 1e-5 / atol 1e-3 (reduction order),
 each bit-identical from launch to launch.  The probe kernels
 (``probes/kernels.py``): the stack and cube sums and the float-lane
@@ -25,6 +26,15 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (run with -m cuda on the card)")
     return torch.device("cuda")
+
+
+def _one_device_kernel(fn) -> bool:
+    """Whether a call of ``fn`` runs exactly one device kernel, by the
+    profiler; a profiling session now and then misses some of the calls'
+    kernels, so up to three sessions are taken."""
+    from vfx_image_stitching_tpu_torch.utils.timing import device_profile
+
+    return any(device_profile(fn, reps=5)[1] == 1 for _ in range(3))
 
 
 def _octave0(dev, h=96, w=128, seed=0):
@@ -65,47 +75,97 @@ def test_localize_newton_kernel_matches_plain(dev):
         assert torch.equal(got_i, again[0]) and torch.equal(got_f, again[1])
 
 
-def test_orientation_histograms_kernel_matches_plain(dev):
-    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
-
-    rng = np.random.default_rng(3)
-    k, half, h, w = 300, 20, 150, 170
-    mag = torch.as_tensor((rng.random((3, h, w)) * 100).astype(np.float32), device=dev)
-    ang = torch.as_tensor((rng.random((3, h, w)) * 360).astype(np.float32), device=dev)
+def _orientation_args(dev, seed, k, half, h, w, rad_hi, num_bins, offset=0):
+    """Random (3, h, w) fields (at a 4-byte ``offset`` from their
+    allocation), centers inside and outside them, radii 0..rad_hi."""
+    rng = np.random.default_rng(seed)
+    n = 3 * h * w
+    mag, ang = (torch.as_tensor((rng.random(n + offset) * sc).astype(np.float32),
+                                device=dev)[offset:].view(3, h, w) for sc in (100, 360))
     ints = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
-            for lo, hi in ((0, 3), (-5, h + 5), (-5, w + 5), (2, half + 1))]
+            for lo, hi in ((0, 3), (-5, h + 5), (-5, w + 5), (0, rad_hi + 1))]
     wf = torch.as_tensor((-0.5 / (rng.random(k) * 4 + 1) ** 2).astype(np.float32),
                          device=dev)
     valid = torch.as_tensor(rng.random(k) > 0.2, device=dev)
-    args = (mag, ang, *ints, wf, valid, half, 36)
-    got = K.orientation_histograms(*args)
-    torch.testing.assert_close(got, K.orientation_histograms_plain(*args),
-                               rtol=2e-5, atol=2e-3)
-    assert torch.equal(got, K.orientation_histograms(*args))  # deterministic
+    return (mag, ang, *ints, wf, valid, half, num_bins)
 
 
-def test_orientation_histograms_v1_kernel_matches_plain(dev):
-    """The warp-per-keypoint kernel against the plain version, radius
-    <= half, centers inside and outside the fields."""
+@pytest.mark.parametrize("num_bins,w,offset,rad_over,load", [
+    (36, 172, 0, 0, "cp.async.16"),
+    (128, 172, 0, 0, "cp.async.16"),
+    (36, 170, 0, 0, "cp.async.4"),      # W not a multiple of 4
+    (128, 172, 1, 0, "cp.async.4"),     # stacks at a 4-byte offset
+    (36, 172, 0, 6, "cp.async.16"),     # radii up to half + 6
+    (128, 170, 0, 6, "cp.async.4"),
+])
+def test_orientation_histograms_kernel_matches_plain(dev, num_bins, w, offset,
+                                                     rad_over, load):
+    """K2 (staged) and K4 (unstaged) against the plain version and each
+    other (rtol 2e-5, atol 2e-3), one launch and one device kernel per
+    call, repeated launches bit-identical, invalid rows zero."""
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
-    rng = np.random.default_rng(4)
-    k, half, h, w = 301, 20, 150, 170
-    mag = torch.as_tensor((rng.random((3, h, w)) * 100).astype(np.float32), device=dev)
-    ang = torch.as_tensor((rng.random((3, h, w)) * 360).astype(np.float32), device=dev)
-    ints = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
-            for lo, hi in ((0, 3), (-5, h + 5), (-5, w + 5), (0, half + 1))]
-    wf = torch.as_tensor((-0.5 / (rng.random(k) * 4 + 1) ** 2).astype(np.float32),
-                         device=dev)
-    valid = torch.as_tensor(rng.random(k) > 0.2, device=dev)
-    args = (mag, ang, *ints, wf, valid, half, 36)
-    n0 = K.LAUNCHES["orientation_histograms_v1"]
-    got = K.orientation_histograms_v1(*args)
-    assert K.LAUNCHES["orientation_histograms_v1"] == n0 + 1
-    torch.testing.assert_close(got, K.orientation_histograms_plain(*args),
-                               rtol=2e-5, atol=2e-3)
-    assert torch.equal(got, K.orientation_histograms_v1(*args))  # deterministic
-    assert not got[~valid].any()
+    half = 20
+    args = _orientation_args(dev, 3 + num_bins + w, 300, half, 150, w,
+                             half + rad_over, num_bins, offset)
+    assert K.orientation_load(args[0], args[1], half, num_bins) == load
+    want = K.orientation_histograms_plain(*args)
+    valid = args[7]
+    outs = []
+    for name, fn in (("orientation_histograms", K.orientation_histograms),
+                     ("orientation_histograms_v1", K.orientation_histograms_v1)):
+        n0 = K.LAUNCHES[name]
+        got = fn(*args)
+        assert K.LAUNCHES[name] == n0 + 1
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
+        assert torch.equal(got, fn(*args))  # deterministic
+        assert not got[~valid].any() and (got[valid].sum(1) > 0).sum() > 150
+        assert _one_device_kernel(lambda: fn(*args))
+        outs.append(got)
+    torch.testing.assert_close(outs[0], outs[1], rtol=2e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("num_bins", [36, 128])
+def test_orientation_histograms_kernel_unstaged_window(dev, num_bins):
+    """A window too large for K2's two stages (half 60): K2's call bins it
+    with K4's kernel; both against the plain version."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    half = 60
+    args = _orientation_args(dev, 60 + num_bins, 200, half, 200, 260, half,
+                             num_bins)
+    assert K.orientation_load(args[0], args[1], half, num_bins) == "direct"
+    want = K.orientation_histograms_plain(*args)
+    for fn in (K.orientation_histograms, K.orientation_histograms_v1):
+        got = fn(*args)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
+        assert torch.equal(got, fn(*args))
+
+
+def test_orientation_histograms_kernel_edge_cases(dev):
+    """Every row invalid (zeros, nothing loaded), no rows (no launch), a
+    single-pixel interior, and every center outside the fields."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    for fn, name in ((K.orientation_histograms, "orientation_histograms"),
+                     (K.orientation_histograms_v1, "orientation_histograms_v1")):
+        args = list(_orientation_args(dev, 8, 100, 20, 90, 120, 20, 36))
+        args[7] = torch.zeros_like(args[7])
+        got = fn(*args)
+        assert got.shape == (100, 36) and not got.any()
+        empty = [a[:0] if torch.is_tensor(a) and a.ndim == 1 else a for a in args]
+        n0 = K.LAUNCHES[name]
+        got = fn(*empty)
+        assert got.shape == (0, 36) and K.LAUNCHES[name] == n0
+        tiny = _orientation_args(dev, 9, 64, 20, 3, 3, 20, 128)
+        torch.testing.assert_close(fn(*tiny), K.orientation_histograms_plain(*tiny),
+                                   rtol=2e-5, atol=2e-3)
+        far = list(_orientation_args(dev, 10, 64, 20, 90, 120, 20, 36))
+        far[3] = far[3] + 500
+        got = fn(*far)
+        torch.testing.assert_close(got, K.orientation_histograms_plain(*far),
+                                   rtol=2e-5, atol=2e-3)
+        assert not got.any()
 
 
 @pytest.mark.parametrize("half_cap", [28, 44])
@@ -144,18 +204,22 @@ def test_descriptor_histograms_kernel_matches_plain(dev, half_cap):
     (28, 60, 301, 0, "cp.async"),     # W not a multiple of 4
     (44, 60, 301, 0, "cp.async"),
     (44, 200, 300, 1, "cp.async"),    # stacks at a 4-byte offset
+    (58, 200, 300, 0, "tma"),         # S = 117: the largest staged window
+    (59, 200, 300, 0, "direct"),      # S = 119: past the staged limit
+    (80, 200, 300, 0, "direct"),      # S = 161
+    (80, 60, 301, 1, "direct"),       # h < S, W % 4 != 0, 4-byte offset
 ])
 def test_pair_window_gather_kernel_matches_plain(dev, half, h, w, offset, load):
     """Bit for bit against the plain version, starts clamped at every
     edge, more keypoints than the persistent grid has blocks; repeated
-    launches identical."""
+    launches identical; one device kernel per call."""
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
     rng = np.random.default_rng(9 + half)
     n = 3 * h * w
     mag, ang = (torch.as_tensor(rng.random(n + offset).astype(np.float32),
                                 device=dev)[offset:].view(3, h, w) for _ in range(2))
-    assert K.pair_window_load(mag, ang) == load
+    assert K.pair_window_load(mag, ang, 2 * half + 1) == load
     k = 1200
     idx = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
            for lo, hi in ((0, 3), (-5, h + 5), (-5, w + 5))]
@@ -167,6 +231,7 @@ def test_pair_window_gather_kernel_matches_plain(dev, half, h, w, offset, load):
         assert torch.equal(a, b)
     for a, b in zip(got, K.pair_window_gather(mag, ang, *idx, half)):
         assert torch.equal(a, b)
+    assert _one_device_kernel(lambda: K.pair_window_gather(mag, ang, *idx, half))
 
 
 def test_stitch_on_cuda_matches_cpu(dev, tmp_path):

@@ -127,10 +127,12 @@ def test_compute_descriptors_histogram_matches_pallas(size_scale, pos_scale):
     assert live == (v.sum() if pos_scale < 1 else 2)
 
 
-def test_orientation_histograms_v1_plain_matches_pallas_interpret():
+@pytest.mark.parametrize("num_bins", [36, 72, 128])
+def test_orientation_histograms_v1_plain_matches_pallas_interpret(num_bins):
     """The v1 wrapper (its plain version on the CPU) against the JAX v1
     kernel on the input of tests/test_pallas_kernels.py:17-53 (K=11,
-    half 20, centers outside the image): rtol 2e-5, atol 2e-3."""
+    half 20, centers outside the image), at 36, 72 and 128 bins: rtol
+    2e-5, atol 2e-3."""
     from vfx_image_stitching_tpu.models.sift.pallas_kernels import (
         orientation_histograms as pallas_k4,
     )
@@ -146,11 +148,11 @@ def test_orientation_histograms_v1_plain_matches_pallas_interpret():
     wf = (-0.5 / (rng.random(k).astype(np.float32) * 4 + 1) ** 2).astype(np.float32)
     valid = rng.random(k) > 0.2
     args = (mag, ang, *ints, radius, wf, valid)
-    ref = np.asarray(pallas_k4(*(jnp.asarray(a) for a in args), half, h, w, 36,
-                               interpret=True))
+    ref = np.asarray(pallas_k4(*(jnp.asarray(a) for a in args), half, h, w,
+                               num_bins, interpret=True))
     got = K.orientation_histograms_v1(
-        *(torch.as_tensor(a) for a in args), half, 36).numpy()
-    assert got.shape == (k, 36)
+        *(torch.as_tensor(a) for a in args), half, num_bins).numpy()
+    assert got.shape == (k, num_bins)
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-3)
     assert np.all(got[~valid] == 0) and got[valid].sum() > 0
 

@@ -203,7 +203,10 @@ def _orientation_case(k=23, half=17, h=150, w=170):
     return mag, ang, layer, cy, cx, radius, wf, valid, half
 
 
-def test_orientation_histograms_plain_matches_pallas_interpret():
+@pytest.mark.parametrize("num_bins", [36, 72, 128])
+def test_orientation_histograms_plain_matches_pallas_interpret(num_bins):
+    """36 bins (the stitch's), 72, and 128 (the TPU kernel's row width,
+    the kernels' limit)."""
     from vfx_image_stitching_tpu.models.sift.pallas_kernels import (
         orientation_histograms_v2,
     )
@@ -213,13 +216,46 @@ def test_orientation_histograms_plain_matches_pallas_interpret():
     h, w = mag.shape[-2:]
     ref = np.asarray(orientation_histograms_v2(
         *(jnp.asarray(a) for a in (mag, ang, layer, cy, cx, radius, wf, valid)),
-        half, h, w, 36, interpret=True))
+        half, h, w, num_bins, interpret=True))
     got = K.orientation_histograms(
         *(torch.as_tensor(a) for a in (mag, ang, layer, cy, cx, radius, wf, valid)),
-        half, 36).numpy()
-    assert got.shape == (len(layer), 36)
+        half, num_bins).numpy()
+    assert got.shape == (len(layer), num_bins)
     np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-3)
     assert np.all(got[~valid] == 0) and got[0, 0] > 0
+
+
+@pytest.mark.parametrize("num_bins", [0, 129])
+def test_orientation_wrappers_refuse_bins_past_limit(num_bins):
+    """Both orientation wrappers refuse a bin count outside 1..128 with an
+    error that names the limit, before any kernel or plain version runs."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    mag, ang, layer, cy, cx, radius, wf, valid, half = _orientation_case(k=3)
+    args = [torch.as_tensor(a) for a in (mag, ang, layer, cy, cx, radius, wf, valid)]
+    for fn in (K.orientation_histograms, K.orientation_histograms_v1):
+        with pytest.raises(ValueError, match=r"num_bins must be in 1\.\.128"):
+            fn(*args, half, num_bins)
+
+
+def test_orientation_load_stage():
+    """K2's load stage: 16-byte cp.async for aligned stacks whose rows are
+    a multiple of 16 bytes, 4-byte for W = 171 or a view at a 4-byte
+    offset, and unstaged ("direct") once a warp's two stages pass the
+    block's shared memory (half 58 fits at 36 bins, 57 does not at 128)."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    z = torch.zeros((3, 60, 300))
+    assert K.orientation_load(z, z, 20, 36) == "cp.async.16"
+    assert K.orientation_load(z, z, 20, 128) == "cp.async.16"
+    odd = torch.zeros((3, 60, 171))
+    assert K.orientation_load(odd, odd, 20, 36) == "cp.async.4"
+    shifted = torch.zeros(3 * 60 * 300 + 1)[1:].view(3, 60, 300)
+    assert K.orientation_load(z, shifted, 20, 36) == "cp.async.4"
+    assert K.orientation_load(z, z, 58, 36) == "cp.async.16"
+    assert K.orientation_load(z, z, 59, 36) == "direct"
+    assert K.orientation_load(z, z, 56, 128) == "cp.async.16"
+    assert K.orientation_load(odd, odd, 57, 128) == "direct"
 
 
 def test_assign_orientations_matches_jax():
@@ -259,10 +295,11 @@ def test_assign_orientations_matches_jax():
 # K3: descriptor window gather, and the descriptors
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("half", [28, 44])
+@pytest.mark.parametrize("half", [28, 44, 59, 80])
 def test_pair_window_gather_plain_matches_pallas_interpret(half):
-    """S = 57 and 89, starts clamped at every edge, a stack narrower and
-    one lower than the window, a width that is not a multiple of 4."""
+    """S = 57 and 89 (the buckets), 119 and 161 (past the kernel's staged
+    limit of 117), starts clamped at every edge, a stack narrower and one
+    lower than the window, a width that is not a multiple of 4."""
     from vfx_image_stitching_tpu.models.sift.pallas_kernels import (
         pair_window_gather as pallas_k3,
     )
@@ -293,11 +330,57 @@ def test_pair_window_load_stage():
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
     mag, ang = torch.zeros((3, 60, 300)), torch.zeros((3, 60, 300))
-    assert K.pair_window_load(mag, ang) == "tma"
+    assert K.pair_window_load(mag, ang, 89) == "tma"
     assert K.pair_window_load(torch.zeros((3, 60, 301)),
-                              torch.zeros((3, 60, 301))) == "cp.async"
+                              torch.zeros((3, 60, 301)), 89) == "cp.async"
     shifted = torch.zeros(3 * 60 * 300 + 1)[1:].view(3, 60, 300)
-    assert shifted.is_contiguous() and K.pair_window_load(mag, shifted) == "cp.async"
+    assert shifted.is_contiguous() and K.pair_window_load(mag, shifted, 89) == "cp.async"
+
+
+def test_pair_window_load_direct_past_117():
+    """Two stages of two (S, S + 3) boxes fit a block's 227 KB of shared
+    memory up to S = 117 (224,784 B); from S = 119 (236,560 B) K3 takes
+    the direct stage, whatever the stacks' alignment."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    z = torch.zeros((3, 60, 300))
+    shifted = torch.zeros(3 * 60 * 301 + 1)[1:].view(3, 60, 301)
+    assert K.pair_window_load(z, z, 117) == "tma"
+    assert K.pair_window_load(shifted, shifted, 117) == "cp.async"
+    for s in (119, 161, 201):
+        assert K.pair_window_load(z, z, s) == "direct"
+        assert K.pair_window_load(shifted, shifted, s) == "direct"
+
+
+def test_pair_window_gather_plain_matches_xla_gather_s161():
+    """At S = 161 against the JAX package's XLA gather
+    (``orientation._window_gather_pair``), at window starts whose column
+    offset in the Pallas kernel's 128-lane tile is 96..127: there the
+    Pallas kernel's two 128-column tiles end before the window does."""
+    from vfx_image_stitching_tpu.models.sift.orientation import (
+        _window_gather_pair,
+        combine_mag_ang,
+    )
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    rng = np.random.default_rng(161)
+    h, w, half = 60, 300, 80
+    mag = (rng.random((3, h, w)) * 100).astype(np.float32)
+    ang = (rng.random((3, h, w)) * 360).astype(np.float32)
+    layer = np.array([0, 1, 2, 0], np.int32)
+    cy = np.array([30, 0, 59, 70], np.int32)
+    cx = np.array([176, 200, 207, 260], np.int32)   # sx 96, 120, 127, 139
+    with jax.disable_jit():
+        ref = _window_gather_pair(combine_mag_ang(jnp.asarray(mag), jnp.asarray(ang)),
+                                  jnp.asarray(layer), jnp.asarray(cy),
+                                  jnp.asarray(cx), half)
+    got = K.pair_window_gather(
+        *(torch.as_tensor(a) for a in (mag, ang, layer, cy, cx)), half)
+    assert np.array_equal(got[3].numpy(), [96, 120, 127, 139])
+    for a, b in zip(got[:2], ref[:2]):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert np.array_equal(got[2].numpy(), np.asarray(ref[2])[:, 0])
+    assert np.array_equal(got[3].numpy(), np.asarray(ref[3])[:, 0])
 
 
 def test_descriptors_bucketed_match_jax():

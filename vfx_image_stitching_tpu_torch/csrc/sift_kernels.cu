@@ -15,6 +15,7 @@
 #include <stdint.h>
 
 #include "newton_step.cuh"
+#include "orientation_hist.cuh"
 
 namespace {
 
@@ -52,59 +53,6 @@ __global__ void __launch_bounds__(K1_WARPS * 32) localize_newton_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K2: raw orientation histograms (replaces orientation_histograms_v2).
-// One block per keypoint over its (2*half+1)^2 window.  Thread t sums the
-// window pixels t, t+T, t+2T, ... into its own column of a shared-memory
-// (bins x T) array; the columns are then added in a fixed pairwise tree.
-// ---------------------------------------------------------------------------
-constexpr int K2_THREADS = 128;
-constexpr int K2_MAX_BINS = 36;
-
-__global__ void __launch_bounds__(K2_THREADS) orientation_kernel(
-    const float* __restrict__ mag, const float* __restrict__ ang, int h, int w,
-    const int* __restrict__ layer, const int* __restrict__ cys,
-    const int* __restrict__ cxs, const int* __restrict__ radii,
-    const float* __restrict__ wfs, const int* __restrict__ valid, int half,
-    int num_bins, float* __restrict__ out) {
-  __shared__ float part[K2_MAX_BINS][K2_THREADS];
-  const int i = blockIdx.x;
-  const int t = threadIdx.x;
-  for (int b = 0; b < num_bins; ++b) part[b][t] = 0.0f;
-
-  const int s = 2 * half + 1;
-  const int cy = cys[i], cx = cxs[i], rad = radii[i];
-  const float wf = wfs[i];
-  const bool ok = valid[i] != 0;
-  const int sy = clampi(cy - half, 0, max(h, s) - s);
-  const int sx = clampi(cx - half, 0, max(w, s) - s);
-  const size_t plane = (size_t)layer[i] * h * w;
-  const float bin_scale = (float)(num_bins / 360.0);
-  if (ok) {
-    for (int p = t; p < s * s; p += K2_THREADS) {
-      const int row = sy + p / s;
-      const int col = sx + p % s;
-      const int dy = row - cy, dx = col - cx;
-      if (abs(dy) > rad || abs(dx) > rad || row < 1 || row > h - 2 ||
-          col < 1 || col > w - 2)
-        continue;
-      const size_t off = plane + (size_t)row * w + col;
-      const float weight = expf(wf * (float)(dy * dy + dx * dx));
-      const float contrib = weight * mag[off];
-      int bin = __float2int_rn(ang[off] * bin_scale) % num_bins;
-      if (bin < 0) bin += num_bins;
-      part[bin][t] += contrib;
-    }
-  }
-  __syncthreads();
-  for (int stride = K2_THREADS / 2; stride > 0; stride >>= 1) {
-    if (t < stride)
-      for (int b = 0; b < num_bins; ++b) part[b][t] += part[b][t + stride];
-    __syncthreads();
-  }
-  if (t < num_bins) out[(size_t)i * num_bins + t] = part[t][0];
-}
-
-// ---------------------------------------------------------------------------
 // K3: descriptor window gather (replaces pair_window_gather).  A persistent
 // grid (the SMs x the blocks that fit) walks the keypoints with a stride.
 // Per keypoint the block loads an (S, B) box of each stack into shared
@@ -120,7 +68,8 @@ __global__ void __launch_bounds__(K2_THREADS) orientation_kernel(
 // or W % 4 != 0), 4-byte cp.async by every thread with explicit zeros.
 // Stores: each window is one flat range of S*S floats, written as 16-byte
 // stores at aligned addresses with a scalar head and tail of <= 3 each.
-// The kernel clamps the starts itself and writes sy, sx.
+// The kernel clamps the starts itself and writes sy, sx.  Windows whose two
+// stages do not fit in shared memory take the direct stage below.
 // ---------------------------------------------------------------------------
 constexpr int K3_THREADS = 512;
 
@@ -313,59 +262,232 @@ __global__ void __launch_bounds__(K3_THREADS) pair_gather_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K4: raw orientation histograms (replaces orientation_histograms, v1).
-// One warp per keypoint, K4_WARPS keypoints per block.  A lane walks the
-// samples of (clamped window) x (radius box) x (1..h-2, 1..w-2) with stride
-// 32 into its own column of a shared (bins x 32) array; each bin is then
-// summed across lanes by an xor butterfly, which leaves the same bits in
-// every lane (float addition is commutative).
+// K3's direct stage, for windows whose two double-buffered boxes do not
+// fit in a block's shared memory (S > 117): no shared memory; a persistent
+// grid walks the keypoints, and each warp copies window rows straight from
+// the stacks, with the other stages' clamped starts and zeros past the
+// stack.  Row r of window i is the flat output range [r*S, r*S + S): 16-byte
+// stores at aligned addresses with a scalar head and tail of <= 3 each.
 // ---------------------------------------------------------------------------
-constexpr int K4_WARPS = 8;
+__global__ void __launch_bounds__(K3_THREADS) pair_gather_direct_kernel(
+    const float* __restrict__ mag, const float* __restrict__ ang, int n_l, int h, int w,
+    const int* __restrict__ layer, const int* __restrict__ cys,
+    const int* __restrict__ cxs, int k, int s, float* __restrict__ magw,
+    float* __restrict__ angw, int* __restrict__ sys, int* __restrict__ sxs) {
+  constexpr int WARPS = K3_THREADS / 32;
+  const int half = s >> 1;
+  const int row_hi = max(h, s) - s, col_hi = max(w, s) - s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = blockIdx.x; i < k; i += gridDim.x) {
+    const int sy = clampi(sift::wrap_add(cys[i], -half), 0, row_hi);
+    const int sx = clampi(sift::wrap_add(cxs[i], -half), 0, col_hi);
+    const int l = layer[i];
+    if (threadIdx.x == 0) {
+      sys[i] = sy;
+      sxs[i] = sx;
+    }
+    // columns of a row that lie inside the stack (0 for a layer outside it)
+    const int n_in = (l >= 0 && l < n_l) ? min(s, w - sx) : 0;
+    for (int r = warp; r < s; r += WARPS) {
+      const size_t o = ((size_t)i * s + r) * s;
+      float* gm = magw + o;
+      float* ga = angw + o;
+      const int cin = sy + r < h ? n_in : 0;
+      const size_t g = cin > 0 ? ((size_t)l * h + sy + r) * w + sx : 0;
+      const float* rm = mag + g;
+      const float* ra = ang + g;
+      // gm and ga share their alignment (the entry point checks the bases)
+      const int head = min((int)(((16u - ((unsigned)(uintptr_t)gm & 15u)) & 15u) >> 2), s);
+      const int n4 = (s - head) >> 2;
+      const int tail = head + 4 * n4;
+      if (lane < head) {
+        gm[lane] = lane < cin ? rm[lane] : 0.0f;
+        ga[lane] = lane < cin ? ra[lane] : 0.0f;
+      }
+      if (tail + lane < s) {
+        const int c = tail + lane;
+        gm[c] = c < cin ? rm[c] : 0.0f;
+        ga[c] = c < cin ? ra[c] : 0.0f;
+      }
+      for (int q = lane; q < n4; q += 32) {
+        const int c0 = head + 4 * q;
+        float m[4], a[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          m[j] = c0 + j < cin ? rm[c0 + j] : 0.0f;
+          a[j] = c0 + j < cin ? ra[c0 + j] : 0.0f;
+        }
+        *reinterpret_cast<float4*>(gm + c0) = make_float4(m[0], m[1], m[2], m[3]);
+        *reinterpret_cast<float4*>(ga + c0) = make_float4(a[0], a[1], a[2], a[3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: raw orientation histograms (replaces orientation_histograms_v2), and
+// K4 (replaces orientation_histograms, v1), which computes the same
+// function.  Both run the walk of orientation_hist.cuh: one warp per
+// keypoint over its radius box x clamped window x interior, private lane
+// bin columns, a fixed-order reduction; invalid rows write zeros and load
+// nothing.
+// K2: a persistent grid.  Each warp stages its keypoint's box of both
+// stacks in its own shared memory with cp.async, double-buffered: the next
+// keypoint's copies are in flight while the current box is binned.  16-byte
+// copies from the box's first column rounded down to 4 floats where the
+// stacks allow them (16-byte aligned base, W % 4 == 0), else 4-byte copies.
+// K4: one warp per keypoint, no staging: each lane loads K4_UNROLL samples
+// from global memory before it bins any.  K2's entry bins a window whose two
+// stages do not fit in a block's shared memory with K4's kernel.
+// ---------------------------------------------------------------------------
+constexpr int K2_MAX_WARPS = 2;  // warps per block
+constexpr int K2_UNROLL = 4;
+constexpr int K4_WARPS = 4;
+constexpr int K4_UNROLL = 16;
+constexpr int SMEM_PER_BLOCK = 232448;  // shared memory a block may opt into (Hopper)
+
+// floats of one staged box: the window's rows, columns from a 4-float
+// aligned start (at most S + 3 of them, rounded up to 4)
+__host__ __device__ __forceinline__ int k2_box_floats(int half) {
+  const int s = 2 * half + 1;
+  return s * ((s + 6) & ~3);
+}
+
+// floats of one warp's shared memory: two stages of (mag, ang) boxes, then
+// the lane bin columns; a multiple of 4 so every warp's boxes are 16-byte
+// aligned
+__host__ __device__ __forceinline__ int k2_warp_floats(int half, int nb) {
+  return (4 * k2_box_floats(half) + nb * sift::ORIENT_ACC_STRIDE + 3) & ~3;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+struct StagedBox {
+  sift::OrientBox b;
+  int c0, bw;  // first staged column; floats per staged row
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(K2_MAX_WARPS * 32) orientation_kernel(
+    const float* __restrict__ mag, const float* __restrict__ ang, int h, int w,
+    const int* __restrict__ layer, const int* __restrict__ cys,
+    const int* __restrict__ cxs, const int* __restrict__ radii,
+    const float* __restrict__ wfs, const unsigned char* __restrict__ valid, int k,
+    int half, int num_bins, float* __restrict__ out) {
+  extern __shared__ __align__(16) float k2_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int first = blockIdx.x * warps + (threadIdx.x >> 5);
+  if (first >= k) return;  // whole warps; no block-wide barrier below
+  const int cap = k2_box_floats(half);
+  float* stages = k2_smem + (size_t)(threadIdx.x >> 5) * k2_warp_floats(half, num_bins);
+  float* acc = stages + 4 * cap;
+  for (int bin = 0; bin < num_bins; ++bin) acc[bin * sift::ORIENT_ACC_STRIDE + lane] = 0.0f;
+  const float bin_scale = (float)(num_bins / 360.0);
+  const int stride = gridDim.x * warps;
+
+  // start the copies of keypoint i's box into stage st: one commit group
+  // per lane, empty for a row that loads nothing
+  auto stage = [&](int i, int st) {
+    StagedBox sb{};
+    if (valid[i])
+      sb.b = sift::orient_box(h, w, half, layer[i], cys[i], cxs[i], radii[i], wfs[i]);
+    if (sb.b.n > 0) {
+      float* dm = stages + 2 * st * cap;
+      float* da = dm + cap;
+      const size_t row0 = ((size_t)sb.b.layer * h + sb.b.r_lo) * w;
+      if constexpr (VEC) {
+        sb.c0 = sb.b.c_lo & ~3;
+        const int nq = ((sb.b.c_hi - sb.c0) >> 2) + 1;  // 16-byte chunks per row
+        sb.bw = 4 * nq;
+        sift::LaneWalk cw(lane, nq);
+        for (int p = lane; p < sb.b.nr * nq; p += 32, cw.step()) {
+          const size_t g = row0 + (size_t)cw.row * w + sb.c0 + 4 * cw.col;
+          const int o = cw.row * sb.bw + 4 * cw.col;
+          cp_async16(dm + o, mag + g);
+          cp_async16(da + o, ang + g);
+        }
+      } else {
+        sb.c0 = sb.b.c_lo;
+        sb.bw = sb.b.nc;
+        sift::LaneWalk cw(lane, sb.b.nc);
+        for (int p = lane; p < sb.b.n; p += 32, cw.step()) {
+          const size_t g = row0 + (size_t)cw.row * w + sb.c0 + cw.col;
+          const int o = cw.row * sb.bw + cw.col;
+          cp_async4(dm + o, mag + g);
+          cp_async4(da + o, ang + g);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    return sb;
+  };
+
+  StagedBox cur = stage(first, 0);
+  int it = 0;
+  for (int i = first; i < k; i += stride, ++it) {
+    const int st = it & 1;
+    StagedBox nxt{};
+    if (i + stride < k) {
+      nxt = stage(i + stride, st ^ 1);
+    } else {
+      asm volatile("cp.async.commit_group;" ::: "memory");  // keep one group per step
+    }
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncwarp();  // every lane's copies of the current box are visible
+    float* orow = out + (size_t)i * num_bins;
+    if (cur.b.n == 0) {
+      sift::orient_zero_row(orow, num_bins, lane);
+    } else {
+      const float* bm = stages + 2 * st * cap + (cur.b.c_lo - cur.c0);
+      const float* ba = bm + cap;
+      const int bw = cur.bw;
+      sift::orient_walk<K2_UNROLL>(
+          cur.b, lane, acc + lane, num_bins, bin_scale,
+          [&](int rr, int cc, int, int, float& m, float& a) {
+            const int o = rr * bw + cc;
+            m = bm[o];
+            a = ba[o];
+          });
+      __syncwarp();
+      sift::orient_reduce(acc, num_bins, lane, orow);
+    }
+    __syncwarp();  // the stage and the bins are free for the next keypoints
+    cur = nxt;
+  }
+}
 
 __global__ void __launch_bounds__(K4_WARPS * 32) orientation_v1_kernel(
     const float* __restrict__ mag, const float* __restrict__ ang, int h, int w,
     const int* __restrict__ layer, const int* __restrict__ cys,
     const int* __restrict__ cxs, const int* __restrict__ radii,
-    const float* __restrict__ wfs, const int* __restrict__ valid, int k,
+    const float* __restrict__ wfs, const unsigned char* __restrict__ valid, int k,
     int half, int num_bins, float* __restrict__ out) {
-  __shared__ float part[K4_WARPS][K2_MAX_BINS][32];
+  extern __shared__ float k4_acc[];  // per warp: its lane bin columns
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * K4_WARPS + warp;
   if (i >= k) return;  // whole warps only; no block-wide barrier below
-  float(*acc)[32] = part[warp];
-  for (int b = 0; b < num_bins; ++b) acc[b][lane] = 0.0f;
-
-  if (valid[i]) {
-    const int s = 2 * half + 1;
-    const int cy = cys[i], cx = cxs[i], rad = radii[i];
-    const float wf = wfs[i];
-    const int sy = clampi(cy - half, 0, max(h, s) - s);
-    const int sx = clampi(cx - half, 0, max(w, s) - s);
-    const int r_lo = max(max(sy, cy - rad), 1);
-    const int r_hi = min(min(sy + s - 1, cy + rad), h - 2);
-    const int c_lo = max(max(sx, cx - rad), 1);
-    const int c_hi = min(min(sx + s - 1, cx + rad), w - 2);
-    const int nc = c_hi - c_lo + 1;
-    const int n = (r_hi >= r_lo && nc > 0) ? (r_hi - r_lo + 1) * nc : 0;
-    const size_t plane = (size_t)layer[i] * h * w;
-    const float bin_scale = (float)(num_bins / 360.0);
-    for (int p = lane; p < n; p += 32) {
-      const int row = r_lo + p / nc;
-      const int col = c_lo + p % nc;
-      const int dy = row - cy, dx = col - cx;
-      const size_t off = plane + (size_t)row * w + col;
-      const float contrib = expf(wf * (float)(dy * dy + dx * dx)) * mag[off];
-      int bin = __float2int_rn(ang[off] * bin_scale) % num_bins;
-      if (bin < 0) bin += num_bins;
-      acc[bin][lane] += contrib;
-    }
+  float* orow = out + (size_t)i * num_bins;
+  sift::OrientBox b{};
+  if (valid[i]) b = sift::orient_box(h, w, half, layer[i], cys[i], cxs[i], radii[i], wfs[i]);
+  if (b.n == 0) {
+    sift::orient_zero_row(orow, num_bins, lane);
+    return;
   }
-  for (int b = 0; b < num_bins; ++b) {
-    float v = acc[b][lane];
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-    if (lane == (b & 31)) out[(size_t)i * num_bins + b] = v;
-  }
+  float* acc = k4_acc + (size_t)warp * num_bins * sift::ORIENT_ACC_STRIDE;
+  for (int bin = 0; bin < num_bins; ++bin) acc[bin * sift::ORIENT_ACC_STRIDE + lane] = 0.0f;
+  const size_t plane = (size_t)b.layer * h * w;
+  sift::orient_walk<K4_UNROLL>(b, lane, acc + lane, num_bins, (float)(num_bins / 360.0),
+                               [&](int, int, int row, int col, float& m, float& a) {
+                                 const size_t off = plane + (size_t)row * w + col;
+                                 m = __ldg(mag + off);
+                                 a = __ldg(ang + off);
+                               });
+  __syncwarp();
+  sift::orient_reduce(acc, num_bins, lane, orow);
 }
 
 // ---------------------------------------------------------------------------
@@ -465,7 +587,7 @@ __global__ void __launch_bounds__(K5_THREADS) descriptor_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// K3's host side: the tensor maps and the launch.
+// Host side: K3's tensor maps, and the launches of K2, K3 and K4.
 // ---------------------------------------------------------------------------
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,
@@ -521,6 +643,23 @@ struct PairGatherArgs {
   int* sx;
 };
 
+// The SMs and the blocks of `kernel` that fit on one; grid = min(want, both)
+template <class Kernel>
+int persistent_grid(Kernel kernel, int threads, int smem, int want, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                           smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *grid = want < sms * per_sm ? want : sms * per_sm;
+  return 0;
+}
+
 template <int S_T, bool TMA>
 int launch_pair_gather(const CUtensorMap& mag_map, const CUtensorMap& ang_map,
                        const PairGatherArgs& a, cudaStream_t stream) {
@@ -530,19 +669,65 @@ int launch_pair_gather(const CUtensorMap& mag_map, const CUtensorMap& ang_map,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K3_THREADS,
-                                                           smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = a.k < sms * per_sm ? a.k : sms * per_sm;
+  int grid = 0;
+  const int gerr = persistent_grid(kernel, K3_THREADS, smem, a.k, &grid);
+  if (gerr != 0) return gerr;
   kernel<<<grid, K3_THREADS, smem, stream>>>(
       mag_map, ang_map, a.mag, a.ang, a.n_l, a.h, a.w, a.layer, a.cy, a.cx, a.k, a.s,
       a.magw, a.angw, a.sy, a.sx);
+  return (int)cudaGetLastError();
+}
+
+int launch_pair_gather_direct(const PairGatherArgs& a, cudaStream_t stream) {
+  int grid = 0;
+  const int err = persistent_grid(pair_gather_direct_kernel, K3_THREADS, 0, a.k, &grid);
+  if (err != 0) return err;
+  pair_gather_direct_kernel<<<grid, K3_THREADS, 0, stream>>>(
+      a.mag, a.ang, a.n_l, a.h, a.w, a.layer, a.cy, a.cx, a.k, a.s, a.magw, a.angw,
+      a.sy, a.sx);
+  return (int)cudaGetLastError();
+}
+
+struct OrientArgs {
+  const float* mag;
+  const float* ang;
+  int h, w;
+  const int* layer;
+  const int* cy;
+  const int* cx;
+  const int* radius;
+  const float* wf;
+  const unsigned char* valid;
+  int k, half, num_bins;
+  float* out;
+};
+
+int launch_orientation_v1(const OrientArgs& a, cudaStream_t stream) {
+  const int smem = K4_WARPS * a.num_bins * sift::ORIENT_ACC_STRIDE * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      orientation_v1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  orientation_v1_kernel<<<(a.k + K4_WARPS - 1) / K4_WARPS, K4_WARPS * 32, smem, stream>>>(
+      a.mag, a.ang, a.h, a.w, a.layer, a.cy, a.cx, a.radius, a.wf, a.valid, a.k, a.half,
+      a.num_bins, a.out);
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int launch_orientation(const OrientArgs& a, cudaStream_t stream) {
+  auto kernel = orientation_kernel<VEC>;
+  const int warp_bytes = k2_warp_floats(a.half, a.num_bins) * (int)sizeof(float);
+  const int warps = K2_MAX_WARPS * warp_bytes <= SMEM_PER_BLOCK ? K2_MAX_WARPS : 1;
+  const int smem = warps * warp_bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int grid = 0;
+  const int gerr = persistent_grid(kernel, warps * 32, smem, (a.k + warps - 1) / warps, &grid);
+  if (gerr != 0) return gerr;
+  kernel<<<grid, warps * 32, smem, stream>>>(a.mag, a.ang, a.h, a.w, a.layer, a.cy, a.cx,
+                                             a.radius, a.wf, a.valid, a.k, a.half,
+                                             a.num_bins, a.out);
   return (int)cudaGetLastError();
 }
 
@@ -566,20 +751,32 @@ int sift_orientation_histograms(const void* mag, const void* ang, int h, int w,
                                 const void* layer, const void* cy, const void* cx,
                                 const void* radius, const void* wf,
                                 const void* valid, int k, int half, int num_bins,
-                                void* out, void* stream) {
-  if (num_bins < 1 || num_bins > K2_MAX_BINS) return (int)cudaErrorInvalidValue;
-  orientation_kernel<<<k, K2_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)mag, (const float*)ang, h, w, (const int*)layer,
-      (const int*)cy, (const int*)cx, (const int*)radius, (const float*)wf,
-      (const int*)valid, half, num_bins, (float*)out);
-  return (int)cudaGetLastError();
+                                int load, void* out, void* stream) {
+  // load: 0 unstaged (K4's kernel), 1 4-byte cp.async, 2 16-byte cp.async
+  if (num_bins < 1 || num_bins > sift::ORIENT_MAX_BINS || half < 0 || load < 0 ||
+      load > 2)
+    return (int)cudaErrorInvalidValue;
+  if (load == 2 && ((((uintptr_t)mag | (uintptr_t)ang) & 15u) || w % 4))
+    return (int)cudaErrorInvalidValue;
+  if (load > 0 && k2_warp_floats(half, num_bins) * (int)sizeof(float) > SMEM_PER_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  const OrientArgs args{(const float*)mag, (const float*)ang, h, w, (const int*)layer,
+                        (const int*)cy, (const int*)cx, (const int*)radius,
+                        (const float*)wf, (const unsigned char*)valid, k, half,
+                        num_bins, (float*)out};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (load == 0) return launch_orientation_v1(args, st);
+  return load == 2 ? launch_orientation<true>(args, st) : launch_orientation<false>(args, st);
 }
 
 int sift_pair_window_gather(const void* mag, const void* ang, int n_l, int h,
                             int w, const void* layer, const void* cy,
-                            const void* cx, int k, int s, int use_tma, void* magw,
+                            const void* cx, int k, int s, int load, void* magw,
                             void* angw, void* sy, void* sx, void* stream) {
-  if (s < 1 || (((uintptr_t)magw | (uintptr_t)angw) & 15u)) return (int)cudaErrorInvalidValue;
+  // load: 0 cp.async, 1 TMA, 2 direct (no shared memory)
+  if (s < 1 || load < 0 || load > 2 || (((uintptr_t)magw | (uintptr_t)angw) & 15u))
+    return (int)cudaErrorInvalidValue;
+  const bool use_tma = load == 1;
   CUtensorMap mag_map{}, ang_map{};
   if (use_tma) {
     if ((((uintptr_t)mag | (uintptr_t)ang) & 15u) || w % 4) return (int)cudaErrorInvalidValue;
@@ -591,6 +788,7 @@ int sift_pair_window_gather(const void* mag, const void* ang, int n_l, int h,
                             (const int*)layer, (const int*)cy, (const int*)cx, k, s,
                             (float*)magw, (float*)angw, (int*)sy, (int*)sx};
   const cudaStream_t st = (cudaStream_t)stream;
+  if (load == 2) return launch_pair_gather_direct(args, st);
   if (s == 57)
     return use_tma ? launch_pair_gather<57, true>(mag_map, ang_map, args, st)
                    : launch_pair_gather<57, false>(mag_map, ang_map, args, st);
@@ -607,13 +805,13 @@ int sift_orientation_histograms_v1(const void* mag, const void* ang, int h,
                                    const void* wf, const void* valid, int k,
                                    int half, int num_bins, void* out,
                                    void* stream) {
-  if (num_bins < 1 || num_bins > K2_MAX_BINS) return (int)cudaErrorInvalidValue;
-  orientation_v1_kernel<<<(k + K4_WARPS - 1) / K4_WARPS, K4_WARPS * 32, 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)mag, (const float*)ang, h, w, (const int*)layer,
-      (const int*)cy, (const int*)cx, (const int*)radius, (const float*)wf,
-      (const int*)valid, k, half, num_bins, (float*)out);
-  return (int)cudaGetLastError();
+  if (num_bins < 1 || num_bins > sift::ORIENT_MAX_BINS || half < 0)
+    return (int)cudaErrorInvalidValue;
+  const OrientArgs args{(const float*)mag, (const float*)ang, h, w, (const int*)layer,
+                        (const int*)cy, (const int*)cx, (const int*)radius,
+                        (const float*)wf, (const unsigned char*)valid, k, half,
+                        num_bins, (float*)out};
+  return launch_orientation_v1(args, (cudaStream_t)stream);
 }
 
 int sift_descriptor_histograms(const void* mag, const void* ang, int h, int w,
