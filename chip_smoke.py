@@ -13,8 +13,12 @@ window gather on both buckets, with the load stage each took, and its
 direct stage at S = 119 and 161 on the big bucket's rows; the
 descriptor-histogram kernel through its route,
 ``compute_descriptors_histogram``, on the descriptor stage's keypoints,
-also held against the stitch's GEMM route); the two descriptor routes
-side by side (``descriptor_ab``); the two probe entry points of
+also held against the stitch's GEMM route, on its small- and big-bucket
+rows apart); the histogram
+route on every octave of the first image (``descriptor_octaves``); the
+descriptor kernels' arithmetic against the library's on every float
+(``kernel_arith``); the two descriptor routes side by side
+(``descriptor_ab``); the two probe entry points of
 ``vfx_image_stitching_tpu_torch/probes/`` (``probe_localize``: the stack
 sum, cube sums and float-lane Newton kernels, P2-P4; ``probe_desc``: the
 tensor-core descriptor histogram, P1, also against K5 on the chain's
@@ -48,7 +52,11 @@ from vfx_image_stitching_tpu_torch.utils.synthetic import (
     SEED,
     synth_chain,
 )
-from vfx_image_stitching_tpu_torch.utils.timing import cuda_ms, device_profile
+from vfx_image_stitching_tpu_torch.utils.timing import (
+    cuda_ms,
+    device_profile,
+    one_kernel_ms,
+)
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12    # f32 outside the tensor cores
@@ -130,17 +138,6 @@ def bound_ms(n_bytes: float, n_flops: float, tf32_flops: float = 0.0):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def one_kernel_ms(fn, name: str, attempts: int = 3) -> float:
-    """Device ms of ``fn``, which must run exactly one device kernel per
-    call; a profile that missed some of the calls' kernels is taken
-    again."""
-    for _ in range(attempts):
-        ms, kernels = device_profile(fn)
-        if kernels == 1:
-            return ms
-    raise AssertionError(f"{name}'s wrapper ran {kernels} device kernels per call")
-
-
 def distinct_pixels(stack_shape, layer, rows, cols, mask) -> int:
     """Distinct (layer, row, col) pixels of an (L, H, W) stack that the
     (K, S, S) sample masks of windows at ``rows`` x ``cols`` (K, S) reach:
@@ -160,9 +157,10 @@ def path_inputs(folder: str, dev) -> dict:
     """Extract every image of the chain as the stitch does (decode,
     cylindrical projection, gray, SIFT), recording the arguments of the
     first octave-0 call of each kernel wrapper, and of the descriptor
-    stage, on image 0: the kernels are then checked and timed on exactly
-    the tensors the path gives them (live-chunk rows, invalid ones
-    included).  Also returns the chain's per-octave stage counts."""
+    stage (of every octave, too), on image 0: the kernels are then checked
+    and timed on exactly the tensors the path gives them (live-chunk rows,
+    invalid ones included).  Also returns the chain's per-octave stage
+    counts."""
     import importlib
 
     import torch
@@ -192,6 +190,10 @@ def path_inputs(folder: str, dev) -> dict:
             key = (name, args[5]) if name == "pair_window_gather" else name
             if key not in calls and tuple(args[0].shape[-2:]) == octave0:
                 calls[key] = (args, kwargs)
+            # the descriptor stage of every octave of image 0 (the first
+            # image's octaves come before any other image's)
+            if name == "compute_descriptors_bucketed":
+                calls.setdefault(("descriptor_octave", args[3]), (args, kwargs))
             return fn(*args, **kwargs)
         return call
 
@@ -282,7 +284,8 @@ def check_kernels(inp: dict):
     # values; writes: 8 int32 and 13 f32 lanes per row
     b, by = bound_ms(n_k * (3 * 4 + 1) + cube_values * 4 + n_k * (8 + 13) * 4,
                      iters * 122)
-    ms = one_kernel_ms(lambda: K.localize_newton_resident(*k1_args), "K1")
+    ms = one_kernel_ms(lambda: K.localize_newton_resident(*k1_args),
+                       "localize_newton_resident")
     rows.append(dict(
         name="localize_newton_resident", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
@@ -338,13 +341,13 @@ def check_kernels(inp: dict):
             launches=0, max_abs_err=float((got - want).abs().max()),
             load=(K.orientation_load(mag, ang, half, nb) if tag == "K2"
                   else "direct"),
-            ms=one_kernel_ms(lambda: fn(*k2_args), tag),
+            ms=one_kernel_ms(lambda: fn(*k2_args), name),
             plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
             shape=dict(stack=list(mag.shape), rows=n_k, valid=int(valid.sum()),
                        window=s, num_bins=nb, masked_samples=samples,
                        distinct_pixels=distinct,
                        max_abs_err_128_bins=float((got128 - want128).abs().max()),
-                       ms_128_bins=one_kernel_ms(lambda: fn(*k2_args[:-1], 128), tag)),
+                       ms_128_bins=one_kernel_ms(lambda: fn(*k2_args[:-1], 128), name)),
         ))
     torch.testing.assert_close(orient["K2"], orient["K4"], rtol=2e-5, atol=2e-3)
     rows[-2]["shape"]["vs_k4_max_abs_err"] = float(
@@ -373,7 +376,7 @@ def check_kernels(inp: dict):
         inside = ((r_idx < mag.shape[-2])[:, :, None]
                   & (c_idx < mag.shape[-1])[:, None, :])
         distinct = distinct_pixels(mag.shape, wl, r_idx, c_idx, inside)
-        ms = one_kernel_ms(lambda: K.pair_window_gather(*args), "K3")
+        ms = one_kernel_ms(lambda: K.pair_window_gather(*args), "pair_window_gather")
         # the cp.async load stage on the same inputs, moved 4 bytes off
         # 16-byte alignment
         shifted = [torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
@@ -412,7 +415,8 @@ def check_kernels(inp: dict):
             raise AssertionError(f"K3 S {s}: direct stage differs")
         direct[f"{s}x{s}"] = dict(
             load="direct", rows=int(big_args[2].shape[0]),
-            ms=one_kernel_ms(lambda: K.pair_window_gather(*d_args), "K3 direct"),
+            ms=one_kernel_ms(lambda: K.pair_window_gather(*d_args),
+                             "pair_window_gather"),
             written_bytes=2 * int(big_args[2].shape[0]) * s * s * 4)
     rows.append(dict(
         name="pair_window_gather", route="cuda",
@@ -468,39 +472,62 @@ def orientation_sweep(mag, ang, half: int, nb: int, seed: int = 7) -> dict:
     return out
 
 
-def check_descriptor_histograms(calls: dict):
-    """K5 on the descriptor stage's octave-0 keypoints of image 0: the
-    histogram route once with the launch counts at 0 (its path run), the
-    raw histograms against the plain version (rtol 1e-5, atol 1e-3),
-    repeated launches bit-identical, and the final descriptors within 1
-    LSB of the bucketed GEMM route's on under 2% of valid entries."""
+def histogram_route(args, kw) -> dict:
+    """The descriptor-histogram route (K5) on one octave's descriptor-stage
+    inputs: its run with the launch counts at 0, the raw histograms
+    against the plain version (rtol 1e-5, atol 1e-3), repeated launches
+    bit-identical, and the final descriptors within 1 LSB of the bucketed
+    GEMM route's on under 2% of valid entries.  Returns the checks, the
+    run's launches and K5's arguments."""
     import torch
 
     from vfx_image_stitching_tpu_torch.models.sift import descriptor as D
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
-    args, kw = calls["compute_descriptors_bucketed"]
     mag, ang, kps, octave, dcfg = args
     K.reset_launch_counts()
     desc = D.compute_descriptors_histogram(mag, ang, kps, octave, dcfg,
                                            layer_base=kw["layer_base"])
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
-    check_launches("descriptor_histogram", launches)
-
     k5_args = D.histogram_inputs(mag, ang, kps, dcfg, kw["layer_base"])
-    got = K.descriptor_histograms(*k5_args)
-    want = K.descriptor_histograms_plain(*k5_args)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
-    if not torch.equal(got, K.descriptor_histograms(*k5_args)):
-        raise AssertionError("K5: repeated launches differ")
+    out = dict(octave=int(octave), rows=int(k5_args[2].shape[0]),
+               valid=int(kps.valid.sum()), launches=launches["descriptor_histograms"])
+    if out["rows"]:
+        check_launches("descriptor_histogram", launches)
+        got = K.descriptor_histograms(*k5_args)
+        want = K.descriptor_histograms_plain(*k5_args)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+        if not torch.equal(got, K.descriptor_histograms(*k5_args)):
+            raise AssertionError(f"K5 octave {octave}: repeated launches differ")
+        out.update(max_abs_err=float((got - want).abs().max()),
+                   ms=one_kernel_ms(lambda: K.descriptor_histograms(*k5_args),
+                                     "descriptor_histograms"))
+    elif any(launches.values()):
+        raise AssertionError(f"octave {octave} has no rows but launched {launches}")
     gemm = D.compute_descriptors_bucketed(*args, **kw)[0]
     v = kps.valid
     diff = (desc[v] - gemm[v]).abs()
-    lsb_share = float((diff > 0).float().mean())
-    if float(diff.max()) > 1.0 or lsb_share >= 0.02:
-        raise AssertionError(f"K5 route vs GEMM: max {float(diff.max())}, "
-                             f"share {lsb_share}")
+    out["vs_gemm_max_lsb"] = float(diff.max()) if diff.numel() else 0.0
+    out["vs_gemm_lsb_share"] = float((diff > 0).float().mean()) if diff.numel() else 0.0
+    if out["vs_gemm_max_lsb"] > 1.0 or out["vs_gemm_lsb_share"] >= 0.02:
+        raise AssertionError(f"K5 route vs GEMM, octave {octave}: {out}")
+    return dict(check=out, launches=launches, k5_args=k5_args)
+
+
+def check_descriptor_histograms(calls: dict):
+    """K5 on the descriptor stage's octave-0 keypoints of image 0: the
+    histogram route (``histogram_route``) once with the launch counts at 0
+    (its path run); K5's time on all rows, on the small-bucket and the
+    big-bucket rows apart (is the tail the largest boxes?).  Returns the
+    kernel row and the launches of the path run."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    args, kw = calls["compute_descriptors_bucketed"]
+    route = histogram_route(args, kw)
+    launches, k5_args, chk = route["launches"], route["k5_args"], route["check"]
 
     (mag_s, ang_s, lyr, py, px, half_w, cos_a, sin_a, hist_w, angle, valid,
      half_cap, nb, ww) = k5_args
@@ -516,22 +543,61 @@ def check_descriptor_histograms(calls: dict):
     n_k = lyr.shape[0]
     b, by = bound_ms(distinct * 8 + n_k * 9 * 4 + n_k * ww * ww * nb * 4,
                      samples * K5_OPS_PER_SAMPLE)
+    small = half_w <= calls["compute_descriptors_bucketed"][0][4].capacities.desc_small_half
+    buckets = {}
+    for name, sel in (("small", small), ("big", ~small)):
+        idx = sel.nonzero()[:, 0]
+        sub = [a[idx] if torch.is_tensor(a) and a.ndim == 1 else a for a in k5_args]
+        buckets[name] = dict(rows=int(idx.numel()), ms=one_kernel_ms(
+            lambda: K.descriptor_histograms(*sub), "descriptor_histograms")
+            if idx.numel() else 0.0)
     return dict(
         name="descriptor_histograms", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
         replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:443",
-        launches=0, max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(lambda: K.descriptor_histograms(*k5_args)),
+        launches=0, max_abs_err=chk["max_abs_err"],
+        ms=chk["ms"],
         plain_ms=cuda_ms(lambda: K.descriptor_histograms_plain(*k5_args), reps=5),
         bound_ms=b, bound_by=by, library_ms=None,
         shape=dict(stack=list(mag_s.shape), rows=n_k, valid=int(valid.sum()),
                    half_cap=half_cap, masked_samples=samples,
-                   distinct_pixels=distinct,
-                   max_rel_err=float(((got - want).abs()
-                                      / want.abs().clamp(min=1.0)).max()),
-                   vs_gemm_max_lsb=float(diff.max()),
-                   vs_gemm_lsb_share=lsb_share),
+                   distinct_pixels=distinct, buckets=buckets,
+                   vs_gemm_max_lsb=chk["vs_gemm_max_lsb"],
+                   vs_gemm_lsb_share=chk["vs_gemm_lsb_share"]),
     ), launches
+
+
+def descriptor_octaves(calls: dict) -> dict:
+    """The histogram route on every octave of image 0 (``histogram_route``
+    at each), with K5's launches and device ms per octave."""
+    octaves = sorted(k[1] for k in calls if isinstance(k, tuple) and k[0] == "descriptor_octave")
+    per = [histogram_route(*calls[("descriptor_octave", o)])["check"]
+           for o in octaves]
+    return dict(phase="descriptor_octaves", per_octave=per)
+
+
+def kernel_arith(calls: dict) -> dict:
+    """The descriptor kernels' arithmetic against the library's on the
+    card: remainder, orientation bins, floors and conversions on every
+    float, and the division by 64 quantiles of the path's octave-0 bin
+    widths, bit for bit (``kernels.descriptor_arith_mismatches``)."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import descriptor as D
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    args, kw = calls["compute_descriptors_bucketed"]
+    mag, ang, kps, _octave, dcfg = args
+    k5_args = D.histogram_inputs(mag, ang, kps, dcfg, kw["layer_base"])
+    widths = k5_args[8][k5_args[10]]
+    widths = torch.quantile(widths, torch.linspace(0, 1, 64, device=widths.device))
+    bad = K.descriptor_arith_mismatches(dcfg.desc_bins, widths)
+    out = dict(phase="kernel_arith", num_bins=dcfg.desc_bins,
+               bin_widths=[float(widths.min()), float(widths.max())],
+               mismatches=dict(remainder_bins_floor=bad[0], division=bad[1]))
+    if bad != (0, 0):
+        raise AssertionError(f"descriptor kernels' arithmetic differs: {out}")
+    return out
 
 
 def descriptor_ab(calls: dict, reps: int = 10) -> dict:
@@ -728,15 +794,19 @@ def probe_desc(calls: dict, dev):
     launches = dict(K.LAUNCHES)
     check_launches("probe_desc", launches)
 
-    probe = DS.check_kernel(synth, hs, ws, timer=cuda_ms)
-    chain = DS.check_kernel(chain_p1[:-2], *chain_p1[-2:], timer=cuda_ms)
+    def p1_timer(fn):
+        return one_kernel_ms(fn, "desc_scratch_dot")
+
+    probe = DS.check_kernel(synth, hs, ws, timer=p1_timer)
+    chain = DS.check_kernel(chain_p1[:-2], *chain_p1[-2:], timer=p1_timer)
     k5 = K.descriptor_histograms(*chain_k5)
     scale = float(k5.abs().max()) or 1.0
     n = k5.shape[0]
     for name, highest in (("default", False), ("highest", True)):
         p1 = PK.desc_scratch_dot(*chain_p1, highest=highest).reshape(n, -1)
         chain[f"{name}_vs_k5_max_rel"] = float((p1 - k5).abs().max()) / scale
-    chain["k5_ms"] = cuda_ms(lambda: K.descriptor_histograms(*chain_k5))
+    chain["k5_ms"] = one_kernel_ms(lambda: K.descriptor_histograms(*chain_k5),
+                                     "descriptor_histograms")
     emit(dict(phase="probe_desc", probe_inputs=probe, chain_small_rows=chain))
     if chain["highest_vs_k5_max_rel"] > 1e-5 or chain["default_vs_k5_max_rel"] > 2e-3:
         raise AssertionError(f"P1 and K5 disagree: {chain}")
@@ -972,6 +1042,8 @@ def main() -> int:
         synth_chain(folder, N_IMAGES, IMG_H, IMG_W, SEED, FOCAL, **SCENE)
         inp = path_inputs(folder, dev)
         rows, k5_launches = check_kernels(inp)
+        emit(descriptor_octaves(inp["calls"]))
+        emit(kernel_arith(inp["calls"]))
         emit(descriptor_ab(inp["calls"]))
         p_rows, p_loc_launches = probe_localize(dev)
         p1_row, p_desc_launches = probe_desc(inp["calls"], dev)

@@ -8,10 +8,12 @@ Contracts: the Newton kernel's integer and float lanes and the window
 gather (all three load stages) bit for bit; orientation histograms (both
 kernels, 36 and 128 bins, each load stage) to rtol 2e-5 / atol 2e-3 and
 raw descriptor histograms to rtol 1e-5 / atol 1e-3 (reduction order),
-each bit-identical from launch to launch.  The probe kernels
-(``probes/kernels.py``): the stack and cube sums and the float-lane
-Newton kernel bit for bit; the tensor-core descriptor histogram within
-2e-3 (TF32) and 1e-5 (3xTF32) of its plain version's maximum.
+each bit-identical from launch to launch; the descriptor kernels'
+orientation remainder and bins equal to ``fmodf`` and integer modulo on
+every float.  The probe kernels (``probes/kernels.py``): the stack and
+cube sums and the float-lane Newton kernel bit for bit; the tensor-core
+descriptor histogram within 2e-3 (TF32) and 1e-5 (3xTF32) of its plain
+version's maximum.
 """
 
 import numpy as np
@@ -28,13 +30,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _one_device_kernel(fn) -> bool:
-    """Whether a call of ``fn`` runs exactly one device kernel, by the
-    profiler; a profiling session now and then misses some of the calls'
-    kernels, so up to three sessions are taken."""
-    from vfx_image_stitching_tpu_torch.utils.timing import device_profile
+def _one_device_kernel(fn, counter: str) -> bool:
+    """Whether a call of ``fn``, a call of the wrapper that counts its
+    launches in ``LAUNCHES[counter]``, runs exactly one device kernel
+    (``timing.one_kernel_ms`` raises if not)."""
+    from vfx_image_stitching_tpu_torch.utils.timing import one_kernel_ms
 
-    return any(device_profile(fn, reps=5)[1] == 1 for _ in range(3))
+    return one_kernel_ms(fn, counter, reps=5) > 0
 
 
 def _octave0(dev, h=96, w=128, seed=0):
@@ -120,7 +122,7 @@ def test_orientation_histograms_kernel_matches_plain(dev, num_bins, w, offset,
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
         assert torch.equal(got, fn(*args))  # deterministic
         assert not got[~valid].any() and (got[valid].sum(1) > 0).sum() > 150
-        assert _one_device_kernel(lambda: fn(*args))
+        assert _one_device_kernel(lambda: fn(*args), name)
         outs.append(got)
     torch.testing.assert_close(outs[0], outs[1], rtol=2e-5, atol=2e-3)
 
@@ -196,6 +198,100 @@ def test_descriptor_histograms_kernel_matches_plain(dev, half_cap):
     assert not got[~valid].any() and (got[valid].amax(1) > 0).sum() > k // 2
 
 
+def _descriptor_args(dev, seed, k, half_cap, h, w, ww=4, nb=8, half_lo=0,
+                     py=None, px=None):
+    """Random (3, h, w) fields and k keypoints: centers ``py``/``px`` (or
+    random, some outside the fields), half-widths half_lo..half_cap, the
+    bin width that half-width implies, random angles, 80% valid."""
+    rng = np.random.default_rng(seed)
+    mag, ang = (torch.as_tensor(rng.random((3, h, w)).astype(np.float32) * s,
+                                device=dev) for s in (100, 360))
+    if py is None:
+        py = rng.integers(-5, h + 5, k)
+    if px is None:
+        px = rng.integers(-5, w + 5, k)
+    ints = [torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+            for a in (rng.integers(0, 3, k), py, px,
+                      rng.integers(half_lo, half_cap + 1, k))]
+    hist_width = ints[3].to(torch.float32) / (0.7071 * (ww + 1)) + 0.5
+    theta = torch.as_tensor(rng.random(k).astype(np.float32) * 360, device=dev)
+    rad = torch.deg2rad(theta)
+    valid = torch.as_tensor(rng.random(k) > 0.2, device=dev)
+    return [mag, ang, *ints, torch.cos(rad), torch.sin(rad), hist_width, theta,
+            valid, half_cap, nb, ww]
+
+
+def _check_descriptor(args):
+    """K5 against its plain version (rtol 1e-5, atol 1e-3), one launch
+    and one device kernel per call, bit-identical repeats, invalid rows
+    zero; returns the histograms."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    n0 = K.LAUNCHES["descriptor_histograms"]
+    got = K.descriptor_histograms(*args)
+    assert K.LAUNCHES["descriptor_histograms"] == n0 + 1
+    torch.testing.assert_close(got, K.descriptor_histograms_plain(*args),
+                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, K.descriptor_histograms(*args))
+    assert not got[~args[10]].any()
+    assert _one_device_kernel(lambda: K.descriptor_histograms(*args),
+                              "descriptor_histograms")
+    return got
+
+
+def test_descriptor_histograms_kernel_tail(dev):
+    """Every row at half_w = 44, the largest box (89x89 samples, the
+    tail of the histogram route)."""
+    args = _descriptor_args(dev, 44, 300, 44, 220, 260, half_lo=44)
+    got = _check_descriptor(args)
+    assert (got[args[10]].amax(1) > 0).sum() > 200
+
+
+def test_descriptor_histograms_kernel_edge_cases(dev):
+    """One keypoint; every row invalid (zeros); no rows (no launch);
+    boxes that touch each edge of the fields, and centers past them."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    h, w = 120, 150
+    one = _descriptor_args(dev, 11, 1, 44, h, w, py=[60], px=[70])
+    one[10] = torch.ones_like(one[10])
+    assert _check_descriptor(one).amax() > 0
+    dead = _descriptor_args(dev, 12, 64, 44, h, w)
+    dead[10] = torch.zeros_like(dead[10])
+    assert not _check_descriptor(dead).any()
+    empty = [a[:0] if torch.is_tensor(a) and a.ndim == 1 else a for a in dead]
+    n0 = K.LAUNCHES["descriptor_histograms"]
+    assert K.descriptor_histograms(*empty).shape == (0, 128)
+    assert K.LAUNCHES["descriptor_histograms"] == n0
+    edge = np.array([-3, 0, 1, 2, 3, 44, 45])
+    ys = np.concatenate([edge, h - 1 - edge])
+    xs = np.concatenate([edge, w - 1 - edge])
+    py, px = (a.ravel() for a in np.meshgrid(ys, xs, indexing="ij"))
+    _check_descriptor(_descriptor_args(dev, 13, py.size, 44, h, w, py=py, px=px))
+
+
+@pytest.mark.parametrize("ww,nb", [(2, 32), (3, 14), (1, 128), (4, 1), (2, 5)])
+def test_descriptor_histograms_kernel_other_shapes(dev, ww, nb):
+    """Cells and bins other than 4 x 8 (ww^2 * nb <= 128), one bin
+    included, against the plain version."""
+    _check_descriptor(_descriptor_args(dev, 20 + ww * nb, 200, 30, 100, 140, ww, nb))
+
+
+@pytest.mark.parametrize("nb", [8, 1, 5, 14, 32, 128])
+def test_descriptor_arith_matches_library(dev, nb):
+    """The descriptor kernels' floor-style remainder and orientation bins
+    (K5's and P1's) equal fmodf and integer modulo, and (with nb = 8)
+    their division by the bin width equals IEEE division for 64 bin
+    widths from 0.05 to 200 (the path's lie near 1 to 20), bit for bit on
+    all 2^32 float bit patterns: the path's arguments are a subset of
+    them."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    rng = np.random.default_rng(nb)
+    widths = np.geomspace(0.05, 200.0, 64) * (1 + rng.random(64) * 1e-3)
+    assert K.descriptor_arith_mismatches(nb, widths if nb == 8 else []) == (0, 0)
+
+
 @pytest.mark.parametrize("half,h,w,offset,load", [
     (28, 200, 300, 0, "tma"),
     (44, 200, 300, 0, "tma"),
@@ -231,7 +327,8 @@ def test_pair_window_gather_kernel_matches_plain(dev, half, h, w, offset, load):
         assert torch.equal(a, b)
     for a, b in zip(got, K.pair_window_gather(mag, ang, *idx, half)):
         assert torch.equal(a, b)
-    assert _one_device_kernel(lambda: K.pair_window_gather(mag, ang, *idx, half))
+    assert _one_device_kernel(lambda: K.pair_window_gather(mag, ang, *idx, half),
+                              "pair_window_gather")
 
 
 def test_stitch_on_cuda_matches_cpu(dev, tmp_path):
@@ -323,3 +420,41 @@ def test_desc_scratch_dot_kernel_matches_plain(dev, highest):
     assert err <= (1e-5 if highest else 2e-3), err
     assert torch.equal(got, PK.desc_scratch_dot(*targs, hs, ws, highest=highest))
     assert not got[-2:].any()
+
+
+@pytest.mark.parametrize("highest", [False, True])
+def test_desc_scratch_dot_kernel_masked_and_edges(dev, highest):
+    """Rows whose whole box misses the histogram (center outside the
+    interior, a bin width so small that no other sample reaches a cell)
+    are zero; rows at every edge of the fields; both precisions, against
+    the plain version and against K5 on the same rows; one device kernel
+    per call."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import desc_scratch_dot as DS
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    rng = np.random.default_rng(17)
+    hs, ws = 100, 130
+    edge = np.array([-2, 0, 1, 2, 28, 29])
+    ys = np.concatenate([edge, hs - 1 - edge])
+    xs = np.concatenate([edge, ws - 1 - edge])
+    py, px = (a.ravel() for a in np.meshgrid(ys, xs, indexing="ij"))
+    k = py.size + 8
+    args = list(DS.make_inputs(rng, k, 3, hs, ws))
+    args[3][:py.size], args[4][:px.size] = py, px
+    # the last 8 rows: centers on the border rows and columns, tiny bins
+    args[3][-8:] = [0, 0, hs - 1, hs - 1, 40, 50, 0, hs - 1]
+    args[4][-8:] = [40, 60, 70, 90, 0, ws - 1, 0, ws - 1]
+    args[8][-8:] = 0.01
+    args[10][:] = 1
+    targs = DS.to_torch(args, dev)
+    got = PK.desc_scratch_dot(*targs, hs, ws, highest=highest)
+    want = PK.desc_scratch_dot_plain(*targs, hs, ws)
+    assert not want[-8:].any() and not got[-8:].any()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= (1e-5 if highest else 2e-3), err
+    assert torch.equal(got, PK.desc_scratch_dot(*targs, hs, ws, highest=highest))
+    assert _one_device_kernel(
+        lambda: PK.desc_scratch_dot(*targs, hs, ws, highest=highest), "desc_scratch_dot")
+    k5 = K.descriptor_histograms(*targs, PK.P1_HALF).reshape(got.shape)
+    assert float((got - k5).abs().max() / k5.abs().max()) <= (1e-5 if highest else 2e-3)

@@ -160,6 +160,36 @@ def test_probe_kernel_wrappers_check_inputs():
             torch.zeros(3, dtype=torch.bool), 1, 1, 5)
 
 
+@pytest.mark.parametrize("kernel", ["descriptor_histograms", "desc_scratch_dot"])
+def test_descriptor_kernel_wrappers_check_inputs(kernel):
+    """K5 and P1 on the CPU: the plain version's result, bit for bit; a
+    per-keypoint array of another length, or of another type, raises, and
+    so does a K5 histogram of more than 128 bins."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import desc_scratch_dot as DS
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    targs = DS.to_torch(DS.make_inputs(np.random.default_rng(3), 6, 3, 60, 80), "cpu")
+    if kernel == "descriptor_histograms":
+        def call(*a, **kw):
+            return K.descriptor_histograms(*a, PK.P1_HALF, **kw)
+        want = K.descriptor_histograms_plain(*targs, PK.P1_HALF)
+        with pytest.raises(ValueError, match="128"):
+            call(*targs, num_bins=9)
+    else:
+        def call(*a, **kw):
+            return PK.desc_scratch_dot(*a, 60, 80, **kw)
+        want = PK.desc_scratch_dot_plain(*targs, 60, 80)
+    assert want.abs().max() > 0
+    assert torch.equal(call(*targs), want)
+    short = [t[:-1] if i == 8 else t for i, t in enumerate(targs)]
+    with pytest.raises(ValueError):
+        call(*short)
+    wrong = [t.double() if i == 6 else t for i, t in enumerate(targs)]
+    with pytest.raises(TypeError):
+        call(*wrong)
+
+
 # ---------------------------------------------------------------------------
 # P4: _localize_resident
 # ---------------------------------------------------------------------------

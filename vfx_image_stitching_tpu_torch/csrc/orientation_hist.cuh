@@ -56,13 +56,16 @@ __device__ __forceinline__ OrientBox orient_box(int h, int w, int half, int laye
   return b;
 }
 
-// A lane's walk over a row-major grid `ncols` wide, stride 32: one
+// A thread's walk over a row-major grid `ncols` wide from position
+// `lane`, `stride` positions a step (32: a warp per keypoint; the
+// descriptor kernels pass 32 times the warps serving one keypoint): one
 // division at the start, then steps with a single carry.
 struct LaneWalk {
   int row, col, dr, dc, ncols;
-  __device__ __forceinline__ LaneWalk(int lane, int ncols_) : ncols(ncols_) {
-    dr = 32 / ncols;
-    dc = 32 - dr * ncols;
+  __device__ __forceinline__ LaneWalk(int lane, int ncols_, int stride = 32)
+      : ncols(ncols_) {
+    dr = stride / ncols;
+    dc = stride - dr * ncols;
     row = lane / ncols;
     col = lane - row * ncols;
   }

@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "descriptor_hist.cuh"
 #include "newton_step.cuh"
 
 namespace {
@@ -85,29 +86,36 @@ __global__ void localize_resident_r4_kernel(
 // ---------------------------------------------------------------------------
 // P1: the small bucket's trilinear descriptor histogram as two-hot matrix
 // products on the tensor cores (replaces _kernel of desc_scratch_dot).
-// One block per keypoint, P1_WARPS warps.  The (16 cells x 8 bins) histogram
-// is one m16n8k8 accumulator tile: per step of 8 window samples, A (16 x 8)
-// holds each sample's spatial two-hot weight per cell and B (8 x 8) its
-// orientation two-hot per bin.  Each warp takes 32-sample tiles in turn:
-// every lane evaluates one sample (the probe's arithmetic and order) into
-// shared memory, then the warp builds the fragments of four mma steps from
-// there.  The warps' tiles are added in warp order at the end: no float
+// One block of P1_WARPS warps per keypoint (so the probe's 512 rows fill
+// the card; 4 and 16 measured slower); a row that is invalid or has
+// nothing inside writes its zero row and leaves.  The (16 cells x 8 bins)
+// histogram is one m16n8k8 accumulator tile per warp: per step of 8
+// samples, A (16 x 8) holds each sample's spatial two-hot weight per cell
+// and B (8 x 8) its orientation two-hot per bin.  Each warp walks its
+// share of the keypoint's samples and queues those that may reach the
+// histogram (sift::desc_fill, as K5 does), then takes them 32 at a time:
+// each lane evaluates one sample (sift::desc_sample) and, unless all 32
+// miss the histogram, writes its operands to the warp's table in shared
+// memory, structure of arrays: rows rv[1..4] (the sample's row weight per
+// cell row), cv[1..4] (per cell column) and ow[0..7] (per bin), one
+// column per lane, rows 36 floats apart, so the 32 lanes' stores and the
+// fragment loads each hit 32 banks (or share an address).  Lanes 8j..8j+7
+// are mma step j.  Lane (g, t) builds its fragments from 8 loads a step,
+// a = rv[row of cell g or g+8] * cv[column of g] of samples t and t + 4,
+// b = ow[g] of the same two; a step whose 8 samples all miss (a warp
+// ballot) runs no mma.  The warps' tiles are added in warp order: no float
 // atomics, so repeated launches give the same bits.
 // ---------------------------------------------------------------------------
-constexpr int P1_WARPS = 4;
+constexpr int P1_WARPS = 8;
 constexpr int P1_HALF = 28;
-constexpr int P1_S = 2 * P1_HALF + 1;
 constexpr int P1_WW = 4;
 constexpr int P1_NB = 8;
 constexpr int P1_CELLS = P1_WW * P1_WW;  // 16: the mma's M
-
-// one sample's operands; weights are 0 for a sample the mask drops
-struct P1Sample {
-  float rw[2];  // c0w at row slot ra, c1 at ra + 1
-  float cw[2];  // 1 - cf at col slot ca, cf at ca + 1
-  float ow[2];  // 1 - of at bin o0, of at bin o1
-  int ra, ca, o0, o1;
-};
+constexpr int P1_OUT = P1_CELLS * P1_NB;
+constexpr int P1_ROW = 36;                      // floats between two table rows
+constexpr int P1_TABLE = (2 * P1_WW + P1_NB) * P1_ROW;  // a warp's table
+static_assert(sift::DESC_QUEUE >= 32 * (1 + sift::DESC_FILL),
+              "a warp's queue holds a batch and one pass of desc_fill");
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -122,20 +130,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A[cell][sample]: the spatial two-hot product rv * cv of the probe, rv and
-// cv each a sum of two selects of which at most one is non-zero
-__device__ __forceinline__ float p1_lhs(const P1Sample& s, int cell) {
-  const int pa = cell / P1_WW + 1, pb = cell % P1_WW + 1;
-  const float rv = (pa == s.ra ? s.rw[0] : 0.0f) + (pa == s.ra + 1 ? s.rw[1] : 0.0f);
-  const float cv = (pb == s.ca ? s.cw[0] : 0.0f) + (pb == s.ca + 1 ? s.cw[1] : 0.0f);
-  return rv * cv;
-}
-
-// B[sample][bin]: the orientation two-hot
-__device__ __forceinline__ float p1_rhs(const P1Sample& s, int bin) {
-  return (bin == s.o0 ? s.ow[0] : 0.0f) + (bin == s.o1 ? s.ow[1] : 0.0f);
 }
 
 template <bool HIGHEST>
@@ -159,6 +153,11 @@ __device__ __forceinline__ void p1_mma(float (&acc)[4], const float (&a)[4],
   mma_tf32(acc, ab, bb);
 }
 
+// the probe's two-hot weight at slot p: w0 at slot i, w1 at slot i + 1
+__device__ __forceinline__ float p1_two_hot(int p, int i, float w0, float w1) {
+  return (p == i ? w0 : 0.0f) + (p == i + 1 ? w1 : 0.0f);
+}
+
 template <bool HIGHEST>
 __global__ void __launch_bounds__(P1_WARPS * 32) desc_scratch_dot_kernel(
     const float* __restrict__ mag, const float* __restrict__ ang, int hs, int ws,
@@ -166,98 +165,104 @@ __global__ void __launch_bounds__(P1_WARPS * 32) desc_scratch_dot_kernel(
     const int* __restrict__ pxs, const int* __restrict__ half_ws,
     const float* __restrict__ coss, const float* __restrict__ sins,
     const float* __restrict__ hist_ws, const float* __restrict__ angles,
-    const int* __restrict__ valid, int img_h, int img_w,
+    const unsigned char* __restrict__ valid, int img_h, int img_w,
     float* __restrict__ out) {
-  __shared__ P1Sample tile[P1_WARPS][32];
-  __shared__ float part[P1_WARPS][P1_CELLS * P1_NB];
+  extern __shared__ float p1_smem[];  // the warps' tables, tiles and queues
+  constexpr int n_warps = P1_WARPS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // mma groupID, thread in group
   const int i = blockIdx.x;
+  float* orow = out + (size_t)i * P1_OUT;
+  const sift::DescBox b =
+      valid[i] ? sift::desc_box(hs, ws, img_h, img_w, P1_HALF, pys[i], pxs[i], half_ws[i])
+               : sift::desc_empty_box();
+  if (b.n == 0) {  // uniform over the block
+    for (int e = threadIdx.x; e < P1_OUT; e += blockDim.x) orow[e] = 0.0f;
+    return;
+  }
+  float* table = p1_smem + warp * P1_TABLE;
+  float* part = p1_smem + n_warps * P1_TABLE;
+  const sift::DescConsts c = sift::desc_consts(P1_WW, P1_NB);
+  const sift::DescKey key =
+      sift::desc_key(pys[i], pxs[i], coss[i], sins[i], hist_ws[i], angles[i], c);
+  const float* mp = mag + (size_t)layer[i] * hs * ws;
+  const float* ap = ang + (size_t)layer[i] * hs * ws;
+  // this lane's fragment rows: cell rows g/4 + 1 and g/4 + 3, cell
+  // column g%4 + 1, bin g; column t (sample t of a step)
+  const float* rv_lo = table + (g >> 2) * P1_ROW + t;
+  const float* rv_hi = table + ((g >> 2) + 2) * P1_ROW + t;
+  const float* cv_g = table + (P1_WW + (g & 3)) * P1_ROW + t;
+  const float* ow_g = table + (2 * P1_WW + g) * P1_ROW + t;
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  if (valid[i]) {  // uniform over the block
-    const int py = pys[i], px = pxs[i], hw = half_ws[i];
-    const int sy = clampi(py - P1_HALF, 0, max(hs, P1_S) - P1_S);
-    const int sx = clampi(px - P1_HALF, 0, max(ws, P1_S) - P1_S);
-    // the samples inside the window, |dy|, |dx| <= half_w, the image's
-    // interior and the stack (past it the probe's padding adds 0)
-    const int r_lo = max(max(sy, py - hw), 1);
-    const int r_hi = min(min(min(sy + P1_S - 1, py + hw), img_h - 2), hs - 1);
-    const int c_lo = max(max(sx, px - hw), 1);
-    const int c_hi = min(min(min(sx + P1_S - 1, px + hw), img_w - 2), ws - 1);
-    const int nc = c_hi - c_lo + 1;
-    const int n = (r_hi >= r_lo && nc > 0) ? (r_hi - r_lo + 1) * nc : 0;
-    const float cos_a = coss[i], sin_a = sins[i], hwid = hist_ws[i];
-    const float angle = angles[i];
-    const float wwf = (float)P1_WW, nbf = (float)P1_NB;
-    const float offset = (float)(0.5 * P1_WW - 0.5);
-    const float weight_mul = (float)(-0.5 / ((0.5 * P1_WW) * (0.5 * P1_WW)));
-    const float bin_scale = (float)(P1_NB / 360.0);
-    const size_t plane = (size_t)layer[i] * hs * ws;
-    P1Sample* mine = &tile[warp][lane];
-    for (int base = warp * 32; base < n; base += P1_WARPS * 32) {
-      P1Sample s = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}, -8, -8, -8, -8};
-      const int p = base + lane;
-      if (p < n) {
-        const int row = r_lo + p / nc;
-        const int col = c_lo + p % nc;
-        const float ys = (float)(row - py), xs = (float)(col - px);
-        const float r_rot = xs * sin_a + ys * cos_a;
-        const float c_rot = xs * cos_a - ys * sin_a;
-        const float rq = r_rot / hwid, cq = c_rot / hwid;
-        const float r_bin = rq + offset, c_bin = cq + offset;
-        if (r_bin > -1.0f && r_bin < wwf && c_bin > -1.0f && c_bin < wwf) {
-          const size_t off = plane + (size_t)row * ws + col;
-          const float wm = expf(weight_mul * (rq * rq + cq * cq)) * mag[off];
-          const float r0b = floorf(r_bin), c0b = floorf(c_bin);
-          const float rf = r_bin - r0b, cf = c_bin - c0b;
-          const float c1 = wm * rf;
-          // floor-style mod of a float, as jnp.mod / torch.remainder
-          float ob = fmodf((ang[off] - angle) * bin_scale, nbf);
-          if (ob < 0.0f) ob += nbf;
-          const float o0 = floorf(ob);
-          const float of = ob - o0;
-          float o1 = fmodf(o0 + 1.0f, nbf);
-          if (o1 < 0.0f) o1 += nbf;
-          s.rw[0] = wm - c1;
-          s.rw[1] = c1;
-          s.cw[0] = 1.0f - cf;
-          s.cw[1] = cf;
-          s.ow[0] = 1.0f - of;
-          s.ow[1] = of;
-          s.ra = (int)fminf(fmaxf(r0b + 1.0f, 0.0f), wwf + 1.0f);
-          s.ca = (int)fminf(fmaxf(c0b + 1.0f, 0.0f), wwf + 1.0f);
-          s.o0 = (int)o0;  // 8 when ob rounds up to 8: then no bin takes 1 - of
-          s.o1 = (int)o1;
-        }
-      }
-      *mine = s;
+  int* q = reinterpret_cast<int*>(part + n_warps * P1_OUT) + warp * sift::DESC_QUEUE;
+  const unsigned q_addr = sift::orient_saddr(q);
+  sift::LaneWalk wk(warp * 32 + lane, b.nc, 32 * n_warps);
+  int p0 = warp * 32, head = 0, count = 0;
+  for (;;) {
+    sift::desc_fill(wk, p0, 32 * n_warps, b, key, lane, q_addr, head, count, 32);
+    if (count == 0) break;  // uniform over the warp
+    const int n = min(count, 32);
+    __syncwarp();
+    const bool live = lane < n;
+    // any value past the batch
+    const int e = __float_as_int(
+        sift::orient_lds(q_addr + (unsigned)((head + lane) & (sift::DESC_QUEUE - 1)) * 4u));
+    int row, col;
+    sift::desc_unpack(live ? e : 0, b, row, col);
+    head += n;
+    count -= n;
+    const unsigned off = (unsigned)(row * ws + col);
+    const float m = __ldg(mp + off), a = __ldg(ap + off);
+    bool slow = false;
+    sift::DescSample s =
+        sift::desc_sample<true>(row - key.py, col - key.px, m, a, live, key, c, slow);
+    if (slow)
+      s = sift::desc_sample<false>(row - key.py, col - key.px, m, a, live, key, c, slow);
+    // mma step j takes lanes 8j..8j+7
+    const unsigned in_mask = __ballot_sync(0xffffffffu, s.in);
+    if (in_mask == 0u) {  // uniform over the warp
       __syncwarp();
+      continue;
+    }
+    int o0, o1;
+    float of;
+    sift::desc_bins_probe(s.ob, P1_NB, o0, o1, of);
+    const int ra = clampi(s.r0 + 1, 0, P1_WW + 1), ca = clampi(s.c0 + 1, 0, P1_WW + 1);
 #pragma unroll
-      for (int step = 0; step < 4; ++step) {
-        const P1Sample& s0 = tile[warp][step * 8 + t];
-        const P1Sample& s1 = tile[warp][step * 8 + t + 4];
+    for (int p = 1; p <= P1_WW; ++p) {
+      table[(p - 1) * P1_ROW + lane] = p1_two_hot(p, ra, s.rw0, s.rw1);
+      table[(P1_WW + p - 1) * P1_ROW + lane] = p1_two_hot(p, ca, s.cw0, s.cw1);
+    }
+#pragma unroll
+    for (int bin = 0; bin < P1_NB; ++bin)
+      table[(2 * P1_WW + bin) * P1_ROW + lane] =
+          s.in ? (bin == o0 ? 1.0f - of : 0.0f) + (bin == o1 ? of : 0.0f) : 0.0f;
+    __syncwarp();
+#pragma unroll
+    for (int step = 0; step < 4; ++step) {
+      if ((in_mask >> (8 * step)) & 0xffu) {
         // PTX m16n8k8 .tf32 fragments: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
         // a3 (g+8, t+4); b0 (k=t, n=g), b1 (k=t+4, n=g)
-        const float a[4] = {p1_lhs(s0, g), p1_lhs(s0, g + 8), p1_lhs(s1, g),
-                            p1_lhs(s1, g + 8)};
-        const float b[2] = {p1_rhs(s0, g), p1_rhs(s1, g)};
-        p1_mma<HIGHEST>(acc, a, b);
+        const int s0 = 8 * step, s1 = s0 + 4;
+        const float av[4] = {rv_lo[s0] * cv_g[s0], rv_hi[s0] * cv_g[s0],
+                             rv_lo[s1] * cv_g[s1], rv_hi[s1] * cv_g[s1]};
+        const float bv[2] = {ow_g[s0], ow_g[s1]};
+        p1_mma<HIGHEST>(acc, av, bv);
       }
-      __syncwarp();
     }
+    __syncwarp();
   }
   // accumulator fragment: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
-  float* tile_acc = part[warp];
+  float* tile_acc = part + warp * P1_OUT;
   tile_acc[g * P1_NB + 2 * t] = acc[0];
   tile_acc[g * P1_NB + 2 * t + 1] = acc[1];
   tile_acc[(g + 8) * P1_NB + 2 * t] = acc[2];
   tile_acc[(g + 8) * P1_NB + 2 * t + 1] = acc[3];
   __syncthreads();
-  for (int e = threadIdx.x; e < P1_CELLS * P1_NB; e += P1_WARPS * 32) {
-    float v = part[0][e];
-    for (int w2 = 1; w2 < P1_WARPS; ++w2) v = v + part[w2][e];
-    out[(size_t)i * P1_CELLS * P1_NB + e] = v;
+  for (int e = threadIdx.x; e < P1_OUT; e += blockDim.x) {
+    float v = part[e];
+    for (int w2 = 1; w2 < n_warps; ++w2) v = v + part[w2 * P1_OUT + e];
+    orow[e] = v;
   }
 }
 
@@ -306,11 +311,15 @@ int probe_desc_scratch_dot(const void* mag, const void* ang, int hs, int ws,
                            int img_h, int img_w, int highest, void* out,
                            void* stream) {
   auto kernel = highest ? desc_scratch_dot_kernel<true> : desc_scratch_dot_kernel<false>;
-  kernel<<<k, P1_WARPS * 32, 0, (cudaStream_t)stream>>>(
+  const int smem = P1_WARPS * (P1_TABLE + P1_OUT + sift::DESC_QUEUE) * (int)sizeof(float);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<k, P1_WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const float*)mag, (const float*)ang, hs, ws, (const int*)layer,
       (const int*)py, (const int*)px, (const int*)half_w, (const float*)cos_a,
       (const float*)sin_a, (const float*)hist_width, (const float*)angle,
-      (const int*)valid, img_h, img_w, (float*)out);
+      (const unsigned char*)valid, img_h, img_w, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "descriptor_hist.cuh"
 #include "newton_step.cuh"
 #include "orientation_hist.cuh"
 
@@ -492,98 +493,220 @@ __global__ void __launch_bounds__(K4_WARPS * 32) orientation_v1_kernel(
 
 // ---------------------------------------------------------------------------
 // K5: raw trilinear descriptor histograms (replaces descriptor_histograms).
-// One block per keypoint.  Thread t walks the samples of (clamped S x S
-// window) x (|dy|, |dx| <= half_w) x (1..h-2, 1..w-2) with stride K5_THREADS
-// and adds each in-bin sample's <= 8 trilinear terms (inner ww x ww cells
-// only) to its own column of a shared (n_out x K5_THREADS) array; the
-// columns are then added in a fixed pairwise tree.  Per sample the floats
-// are those of the plain version, in its order.
+// One block of K5_WARPS warps (T = K5_THREADS threads) per keypoint (the
+// 1, 2 and 8 warp blocks measured slower); a row that is
+// invalid or has nothing inside writes its zero row and leaves.  Each warp
+// walks its share of the keypoint's samples and queues those that may
+// reach the histogram (sift::desc_fill), then takes them 32 * K5_UNROLL
+// at a time, K5_UNROLL a lane: the batch's loads, then its samples
+// (sift::desc_sample), without a branch; then each sample's 8 trilinear
+// terms into the thread's own column of shared memory, acc[o * T + t]
+// (every address of a thread lies in bank t % 32).  The 8 terms of one
+// sample go to 8 distinct bins (a term of a dropped sample, or of a cell
+// outside the inner ww x ww, goes to the column's spare slot n_out, which
+// nothing reads), so their 8 loads issue together; a lane's samples follow
+// one another.  After one barrier thread t sums output o = t, t + T, ...
+// over the T columns (T a power of 2), 16 bytes at a time from column
+// 4o on (mod T), in four partial sums: a fixed order, no barrier per
+// level, no float atomics, so repeated launches give the same bits.
+// WW_T, NB_T: the cells and bins compiled in (the SIFT path's 4 x 8), or
+// 0 to take them from the arguments.
 // ---------------------------------------------------------------------------
-constexpr int K5_THREADS = 128;
+constexpr int K5_WARPS = 4;
+constexpr int K5_THREADS = 32 * K5_WARPS;  // a power of 2
 constexpr int K5_MAX_OUT = 128;
+constexpr int K5_UNROLL = 4;
+static_assert(sift::DESC_QUEUE >= 32 * (K5_UNROLL + sift::DESC_FILL),
+              "a warp's queue holds a batch and one pass of desc_fill");
 
+// sample s's terms into the column at shared address col: bin o of cell
+// (r, c) at col + (r ww + c) cell_bytes + o bin_bytes; the spare slot at
+// `spare`
+__device__ __forceinline__ void k5_add(const sift::DescSample& s, int ww, int nb,
+                                       unsigned col, unsigned bin_bytes,
+                                       unsigned cell_bytes, unsigned spare) {
+  int o0, o1;
+  float of;
+  sift::desc_bins_wrap(s.ob, nb, o0, o1, of);
+  // one bin (nb == 1) takes both terms: the plain version's (1 - of) + of
+  const float w_lo = nb == 1 ? (1.0f - of) + of : 1.0f - of;
+  const unsigned base = (unsigned)(s.r0 * ww + s.c0) * cell_bytes;
+  const unsigned lo = col + (unsigned)o0 * bin_bytes, hi = col + (unsigned)o1 * bin_bytes;
+  unsigned ad[8];
+  float tv[8];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const bool ok = s.in && (unsigned)(s.r0 + a) < (unsigned)ww &&
+                      (unsigned)(s.c0 + b) < (unsigned)ww;
+      const unsigned cell = base + (a * (unsigned)ww + b) * cell_bytes;
+      const float v = (a ? s.rw1 : s.rw0) * (b ? s.cw1 : s.cw0);
+      const int e = 2 * (2 * a + b);
+      ad[e] = ok ? cell + lo : spare;
+      ad[e + 1] = ok && nb > 1 ? cell + hi : spare;
+      tv[e] = v * w_lo;
+      tv[e + 1] = v * of;
+    }
+  }
+  float x[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = sift::orient_lds(ad[e]);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sift::orient_sts(ad[e], x[e] + tv[e]);
+}
+
+template <int WW_T, int NB_T>
 __global__ void __launch_bounds__(K5_THREADS) descriptor_kernel(
     const float* __restrict__ mag, const float* __restrict__ ang, int h, int w,
     const int* __restrict__ layer, const int* __restrict__ pys,
     const int* __restrict__ pxs, const int* __restrict__ half_ws,
     const float* __restrict__ coss, const float* __restrict__ sins,
     const float* __restrict__ hist_ws, const float* __restrict__ angles,
-    const int* __restrict__ valid, int half_cap, int num_bins, int ww,
+    const unsigned char* __restrict__ valid, int half_cap, int num_bins_arg, int ww_arg,
     float* __restrict__ out) {
-  extern __shared__ float part[];  // part[bin * K5_THREADS + thread]
+  // acc[o * T + t], o = 0..n_out (n_out: the spare slot), then the warps' queues
+  extern __shared__ float acc[];
+  const int ww = WW_T ? WW_T : ww_arg, num_bins = NB_T ? NB_T : num_bins_arg;
   const int i = blockIdx.x;
-  const int t = threadIdx.x;
+  constexpr int T = K5_THREADS;
+  const int t = threadIdx.x, lane = t & 31;
   const int n_out = ww * ww * num_bins;
-  for (int b = 0; b < n_out; ++b) part[b * K5_THREADS + t] = 0.0f;
-
-  if (valid[i]) {
-    const int s = 2 * half_cap + 1;
-    const int py = pys[i], px = pxs[i], hw = half_ws[i];
-    const int sy = clampi(py - half_cap, 0, max(h, s) - s);
-    const int sx = clampi(px - half_cap, 0, max(w, s) - s);
-    const int r_lo = max(max(sy, py - hw), 1);
-    const int r_hi = min(min(sy + s - 1, py + hw), h - 2);
-    const int c_lo = max(max(sx, px - hw), 1);
-    const int c_hi = min(min(sx + s - 1, px + hw), w - 2);
-    const int nc = c_hi - c_lo + 1;
-    const int n = (r_hi >= r_lo && nc > 0) ? (r_hi - r_lo + 1) * nc : 0;
-    const float cos_a = coss[i], sin_a = sins[i], hwid = hist_ws[i];
-    const float angle = angles[i];
-    const float wwf = (float)ww, nbf = (float)num_bins;
-    const float offset = (float)(0.5 * ww - 0.5);
-    const float weight_mul = (float)(-0.5 / ((0.5 * ww) * (0.5 * ww)));
-    const float bin_scale = (float)(num_bins / 360.0);
-    const size_t plane = (size_t)layer[i] * h * w;
-    for (int p = t; p < n; p += K5_THREADS) {
-      const int row = r_lo + p / nc;
-      const int col = c_lo + p % nc;
-      const float ys = (float)(row - py), xs = (float)(col - px);
-      const float r_rot = xs * sin_a + ys * cos_a;
-      const float c_rot = xs * cos_a - ys * sin_a;
-      const float rq = r_rot / hwid, cq = c_rot / hwid;
-      const float r_bin = rq + offset, c_bin = cq + offset;
-      if (!(r_bin > -1.0f && r_bin < wwf && c_bin > -1.0f && c_bin < wwf))
-        continue;
-      const size_t off = plane + (size_t)row * w + col;
-      const float wm = expf(weight_mul * (rq * rq + cq * cq)) * mag[off];
-      // floor-style mod of a float, as torch.remainder / jnp.mod
-      float ob = fmodf((ang[off] - angle) * bin_scale, nbf);
-      if (ob < 0.0f) ob += nbf;
-      const int r0 = (int)floorf(r_bin), c0 = (int)floorf(c_bin);
-      int o0 = (int)floorf(ob) % num_bins;
-      if (o0 < 0) o0 += num_bins;
-      const int o1 = (o0 + 1) % num_bins;
-      const float rf = r_bin - (float)r0;
-      const float cf = c_bin - (float)c0;
-      const float of = ob - (float)o0;
-      const float c1 = wm * rf;
-      const float wr[2] = {wm - c1, c1};
-      const float wc[2] = {1.0f - cf, cf};
+  float* orow = out + (size_t)i * n_out;
+  // every per-keypoint load at once
+  const bool ok = valid[i];
+  const int py = pys[i], px = pxs[i], hw = half_ws[i], lyr = layer[i];
+  const float cos_a = coss[i], sin_a = sins[i], hwid = hist_ws[i], angle = angles[i];
+  const sift::DescBox b =
+      ok ? sift::desc_box(h, w, h, w, half_cap, py, px, hw) : sift::desc_empty_box();
+  if (b.n == 0) {  // uniform over the block
+    for (int o = t; o < n_out; o += T) orow[o] = 0.0f;
+    return;
+  }
+  const int n_acc = (n_out + 1) * T;  // a multiple of 4: T is
+  for (int e = t; e < n_acc / 4; e += T)
+    reinterpret_cast<float4*>(acc)[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  int* q = reinterpret_cast<int*>(acc + n_acc) + (t >> 5) * sift::DESC_QUEUE;
+  const sift::DescConsts c = sift::desc_consts(ww, num_bins);
+  const sift::DescKey key = sift::desc_key(py, px, cos_a, sin_a, hwid, angle, c);
+  const float* mp = mag + (size_t)lyr * h * w;
+  const float* ap = ang + (size_t)lyr * h * w;
+  const unsigned bin_bytes = (unsigned)T * 4u, cell_bytes = (unsigned)num_bins * bin_bytes;
+  const unsigned col = sift::orient_saddr(acc + t);
+  const unsigned spare = col + (unsigned)n_out * bin_bytes;
+  const unsigned q_addr = sift::orient_saddr(q);
+  sift::LaneWalk wk(t, b.nc, T);
+  int p0 = t & ~31, head = 0, count = 0;
+  for (;;) {
+    sift::desc_fill(wk, p0, T, b, key, lane, q_addr, head, count, 32 * K5_UNROLL);
+    if (count == 0) break;  // uniform over the warp
+    const int n = min(count, 32 * K5_UNROLL);
+    __syncwarp();
+    int row[K5_UNROLL], cc[K5_UNROLL];
+    bool live[K5_UNROLL];
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int r = r0 + a;  // inner row r + 1 of the padded (ww+2) grid
-        if (r < 0 || r >= ww) continue;
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int c = c0 + b;
-          if (c < 0 || c >= ww) continue;
-          const float v = wr[a] * wc[b];
-          float* cell = part + (size_t)((r * ww + c) * num_bins) * K5_THREADS + t;
-          cell[o0 * K5_THREADS] += v * (1.0f - of);
-          cell[o1 * K5_THREADS] += v * of;
-        }
-      }
+    for (int u = 0; u < K5_UNROLL; ++u) {
+      // every slot is read (one past the batch may hold anything) and
+      // then replaced by the box's first sample, without a branch
+      live[u] = lane + 32 * u < n;
+      const int e = __float_as_int(sift::orient_lds(
+          q_addr + (unsigned)((head + lane + 32 * u) & (sift::DESC_QUEUE - 1)) * 4u));
+      sift::desc_unpack(live[u] ? e : 0, b, row[u], cc[u]);
     }
+    head += n;
+    count -= n;
+    __syncwarp();
+    float m[K5_UNROLL], a[K5_UNROLL];
+#pragma unroll
+    for (int u = 0; u < K5_UNROLL; ++u) {
+      const unsigned off = (unsigned)(row[u] * w + cc[u]);
+      m[u] = __ldg(mp + off);
+      a[u] = __ldg(ap + off);
+    }
+    sift::DescSample s[K5_UNROLL];
+    bool slow = false;
+#pragma unroll
+    for (int u = 0; u < K5_UNROLL; ++u)
+      s[u] = sift::desc_sample<true>(row[u] - key.py, cc[u] - key.px, m[u], a[u], live[u],
+                                     key, c, slow);
+    if (slow) {
+#pragma unroll
+      for (int u = 0; u < K5_UNROLL; ++u)
+        s[u] = sift::desc_sample<false>(row[u] - key.py, cc[u] - key.px, m[u], a[u],
+                                        live[u], key, c, slow);
+    }
+#pragma unroll
+    for (int u = 0; u < K5_UNROLL; ++u)
+      k5_add(s[u], ww, num_bins, col, bin_bytes, cell_bytes, spare);
   }
   __syncthreads();
-  for (int stride = K5_THREADS / 2; stride > 0; stride >>= 1) {
-    if (t < stride)
-      for (int b = 0; b < n_out; ++b)
-        part[b * K5_THREADS + t] += part[b * K5_THREADS + t + stride];
-    __syncthreads();
+  for (int o = t; o < n_out; o += T) {
+    const float* r = acc + o * T;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+    for (int n = 0; n < T; n += 4) {
+      // columns n + 4o .. + 3 (mod T, a power of 2): a quarter warp's 8
+      // outputs read 8 different groups of 4 banks
+      const float4 x = *reinterpret_cast<const float4*>(r + ((n + 4 * o) & (T - 1)));
+      v[0] += x.x;
+      v[1] += x.y;
+      v[2] += x.z;
+      v[3] += x.w;
+    }
+    orow[o] = (v[0] + v[1]) + (v[2] + v[3]);
   }
-  for (int b = t; b < n_out; b += K5_THREADS)
-    out[(size_t)i * n_out + b] = part[b * K5_THREADS];
+}
+
+// Every finite float x: the descriptor kernels' remainder mod nb and
+// orientation bins (K5's and P1's) against fmodf and integer modulo, their
+// floor against floorf where |x| < 2^22, and their division x / b for each
+// of the n_b bin widths bs against IEEE division, bit for bit (the path's
+// arguments are finite: differences of angles, offsets of integers); also
+// their int-float conversions on every int below 2^22 in magnitude.  Adds
+// the number of x that differ to bad[0] (remainder, bins, floor and
+// conversions) and bad[1] (divisions).
+__global__ void descriptor_arith_check_kernel(int nb, const float* __restrict__ bs,
+                                              int n_b, unsigned long long* bad) {
+  const float nbf = (float)nb;
+  const sift::DescConsts c = sift::desc_consts(4, nb);
+  unsigned long long n_mod = 0, n_div = 0;
+  const unsigned long long step = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += step) {
+    const float x = __uint_as_float((unsigned)i);
+    const int v = (int)(unsigned)i;
+    bool same = true;
+    if (v > -(1 << 22) && v < (1 << 22))
+      same = __float_as_uint(sift::desc_i2f(v)) == __float_as_uint((float)v) &&
+             sift::desc_f2i((float)v) == v;
+    if (isfinite(x)) {
+      const float ob = sift::desc_remainder_ref(x, nbf);
+      same = same && __float_as_uint(sift::desc_remainder(x, nbf)) == __float_as_uint(ob);
+      if (fabsf(x) < 0x1p22f)
+        same = same && __float_as_uint(sift::desc_floor(x)) == __float_as_uint(floorf(x));
+      int a0, a1, b0, b1;
+      float af, bf;
+      sift::desc_bins_wrap(ob, nb, a0, a1, af);
+      sift::desc_bins_wrap_ref(ob, nb, b0, b1, bf);
+      same = same && a0 == b0 && a1 == b1 && __float_as_uint(af) == __float_as_uint(bf);
+      sift::desc_bins_probe(ob, nb, a0, a1, af);
+      sift::desc_bins_probe_ref(ob, nb, b0, b1, bf);
+      same = same && a0 == b0 && a1 == b1 && __float_as_uint(af) == __float_as_uint(bf);
+    }
+    n_mod += !same;
+    bool div_same = true;
+    for (int j = 0; j < n_b; ++j) {
+      const sift::DescKey k = sift::desc_key(0, 0, 1.0f, 0.0f, bs[j], 0.0f, c);
+      bool slow = false;
+      float q = sift::desc_div(x, k, slow);
+      if (slow) q = x / bs[j];
+      div_same = div_same && __float_as_uint(q) == __float_as_uint(x / bs[j]);
+    }
+    n_div += !div_same;
+  }
+  if (n_mod) atomicAdd(bad, n_mod);
+  if (n_div) atomicAdd(bad + 1, n_div);
 }
 
 // ---------------------------------------------------------------------------
@@ -823,15 +946,25 @@ int sift_descriptor_histograms(const void* mag, const void* ang, int h, int w,
                                void* stream) {
   const int n_out = ww * ww * num_bins;
   if (num_bins < 1 || ww < 1 || n_out > K5_MAX_OUT) return (int)cudaErrorInvalidValue;
-  const int smem = n_out * K5_THREADS * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      descriptor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = ww == 4 && num_bins == 8 ? descriptor_kernel<4, 8> : descriptor_kernel<0, 0>;
+  const int smem =
+      ((n_out + 1) * K5_THREADS + K5_WARPS * sift::DESC_QUEUE) * (int)sizeof(float);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  descriptor_kernel<<<k, K5_THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<k, K5_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)mag, (const float*)ang, h, w, (const int*)layer,
       (const int*)py, (const int*)px, (const int*)half_w, (const float*)cos_a,
       (const float*)sin_a, (const float*)hist_width, (const float*)angle,
-      (const int*)valid, half_cap, num_bins, ww, (float*)out);
+      (const unsigned char*)valid, half_cap, num_bins, ww, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+int sift_descriptor_arith_check(int num_bins, const void* bin_widths, int n_b, void* bad,
+                                void* stream) {
+  if (num_bins < 1 || n_b < 0) return (int)cudaErrorInvalidValue;
+  descriptor_arith_check_kernel<<<132 * 8, 256, 0, (cudaStream_t)stream>>>(
+      num_bins, (const float*)bin_widths, n_b, (unsigned long long*)bad);
   return (int)cudaGetLastError();
 }
 

@@ -21,19 +21,23 @@ design does about it):
     per keypoint a (16, S^2) spatial operand times an (S^2, 8) orientation
     operand.  The (16 cells x 8 bins) accumulator is exactly one
     ``mma.sync.m16n8k8`` tile, so the kernel runs the contraction on the
-    tensor cores in TF32: one block of four warps per keypoint; each lane
-    evaluates one window sample (the probe's arithmetic and order, IEEE
-    division, no contraction: the floors are knife edges) into shared
-    memory, and the warp builds the A and B fragments of four mma steps
-    from there.  ``highest=False`` is one TF32 product (the probe's
-    ``Precision.DEFAULT``), ``highest=True`` 3xTF32 (its ``HIGHEST``).
-    The warps' tiles are added in warp order: no float atomics.  Its
-    bound is the window's bytes; it runs far above it, as K5 does
-    (``PERF.md``): per sample it also does two divisions, an ``expf``, an
-    ``fmodf`` and the fragment builds, beside 2*16*8 tensor-core
-    operations.  The TPU's 2x2 tile fetch, 64-padding and in-kernel
-    transpose are BlockSpec and layout workarounds with no counterpart
-    here.
+    tensor cores in TF32.  It walks and evaluates the samples as K5 does
+    (``csrc/descriptor_hist.cuh``: each warp queues the samples of its
+    share of the box that can reach the histogram, then evaluates them
+    one a lane, the probe's arithmetic and order, IEEE division, no
+    contraction: the floors are knife edges).  8 warps per keypoint, so
+    the probe's 512 rows fill the card (4 and 16 measured slower); each
+    warp writes its 32 samples' operands to shared memory,
+    structure of arrays with rows 36 floats apart (no bank conflicts),
+    builds the A and B fragments of four mma steps from 8 loads a step,
+    and skips a step whose 8 samples all miss.  ``highest=False`` is one
+    TF32 product (the probe's ``Precision.DEFAULT``), ``highest=True``
+    3xTF32 (its ``HIGHEST``).  The warps' tiles are added in warp order:
+    no float atomics.  Its bound is the window's bytes; like K5 it is
+    held by each sample's arithmetic and a warp's chain (``PERF.md``).
+    A call is one device kernel (the kernel reads the mask's bytes).  The
+    TPU's 2x2 tile fetch, 64-padding and in-kernel transpose are
+    BlockSpec and layout workarounds with no counterpart here.
 
 ``feas1_stack_sum`` (P2) replaces the ``feas1`` kernel: the sum over the
     layers of the stack's (8, 128) corner, which on the TPU tested whether
@@ -336,13 +340,12 @@ def desc_scratch_dot(
         return desc_scratch_dot_plain(mag, ang, layer, py, px, half_w, cos_a,
                                       sin_a, hist_width, angle, valid, img_h,
                                       img_w)
-    args = [t.contiguous() for t in (mag, ang, *ints, *floats)]
-    valid_i = valid.to(torch.int32)
+    args = [t.contiguous() for t in (mag, ang, *ints, *floats, valid)]
     out = torch.empty((k, P1_WW * P1_WW, P1_NB), dtype=torch.float32, device=dev)
     if k == 0:
         return out
     n_l, hs, ws = mag.shape
     _launch(name, dev, "probe_desc_scratch_dot",
             _ptr(args[0]), _ptr(args[1]), hs, ws, *(_ptr(t) for t in args[2:]),
-            _ptr(valid_i), k, img_h, img_w, int(highest), _ptr(out))
+            k, img_h, img_w, int(highest), _ptr(out))
     return out
