@@ -20,9 +20,11 @@ descriptor kernels' arithmetic against the library's on every float
 (``kernel_arith``); the two descriptor routes side by side
 (``descriptor_ab``); the two probe entry points of
 ``vfx_image_stitching_tpu_torch/probes/`` (``probe_localize``: the stack
-sum, cube sums and float-lane Newton kernels, P2-P4; ``probe_desc``: the
-tensor-core descriptor histogram, P1, also against K5 on the chain's
-small-bucket rows); then the end-to-end stitch of the chain (one
+sum, cube sums and float-lane Newton kernels, P2-P4, each timed as one
+device kernel beside ``floor_ms``, the device time of a one-element
+``fill_``, a launch that does no work; P4 beside K1 on the same slots;
+``probe_desc``: the tensor-core descriptor histogram, P1, also against K5
+on the chain's small-bucket rows); then the end-to-end stitch of the chain (one
 warm-up, timed runs, launch counts, a profiled run, the whole chain on
 the CPU against the card's first run, shifts, pairs, escalation counts
 and bytes; the first four images on the card and the CPU, and those four
@@ -648,7 +650,10 @@ def probe_localize(dev):
     run with the launch counts at 0 (``feas1``, ``feas2``, and P4 +
     finalize on every octave of the chain's image 0), then each phase's
     checks and device times, and the rows of P2, P3 and P4 (P4 on octave
-    0's candidate slots).  Returns the rows and the path run's launches."""
+    0's candidate slots, beside K1 on the same slots), each timed as one
+    device kernel per call beside ``floor_ms``, the device time of a
+    launch that does no work.  Returns the rows and the path run's
+    launches."""
     import torch
 
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
@@ -675,6 +680,8 @@ def probe_localize(dev):
     f1, f2, nw = phases
     src = "vfx_image_stitching_tpu_torch/csrc/probe_kernels.cu"
     script = "scripts/probe_localize_resident_r4.py"
+    one = torch.zeros(1, device=dev)
+    floor = cuda_ms(lambda: one.fill_(0.0))
     rows = []
 
     dog1 = R.feas1_input(dev)
@@ -682,10 +689,11 @@ def probe_localize(dev):
     b, by = bound_ms(n_l * 8 * 128 * 4 + 8 * 128 * 4, n_l * 8 * 128)
     rows.append(dict(
         name="feas1_stack_sum", route="cuda", source=src,
-        replaces=f"{script}:77", launches=0, max_abs_err=0.0, ms=f1["ms"],
+        replaces=f"{script}:77", launches=0, max_abs_err=0.0,
+        ms=one_kernel_ms(lambda: PK.feas1_stack_sum(dog1), "feas1_stack_sum"),
         plain_ms=cuda_ms(lambda: PK.feas1_stack_sum_plain(dog1), reps=5),
         bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(lambda: dog1[:, :8, :128].sum(0)),
+        library_ms=cuda_ms(lambda: dog1[:, :8, :128].sum(0)), floor_ms=floor,
         shape=dict(stack=list(dog1.shape), stack_mb=f1["stack_mb"],
                    l2_mb=f1.get("l2_mb"))))
 
@@ -695,33 +703,39 @@ def probe_localize(dev):
     mark_cubes(hit, *args2[1:])
     distinct = int(hit.sum())
     b, by = bound_ms(distinct * 4 + k2 * 3 * 4 + k2 * 4, k2 * 27)
+    ms = one_kernel_ms(lambda: PK.feas2_cube_sums(*args2), "feas2_cube_sums")
     rows.append(dict(
         name="feas2_cube_sums", route="cuda", source=src,
         replaces=f"{script}:170", launches=0, max_abs_err=f2["max_err"],
-        ms=f2["ms"], plain_ms=cuda_ms(lambda: PK.feas2_cube_sums_plain(*args2), reps=5),
-        bound_ms=b, bound_by=by, library_ms=None,
+        ms=ms, plain_ms=cuda_ms(lambda: PK.feas2_cube_sums_plain(*args2), reps=5),
+        bound_ms=b, bound_by=by, library_ms=None, floor_ms=floor,
         shape=dict(stack=list(args2[0].shape), candidates=k2,
-                   distinct_values=distinct,
-                   us_per_candidate=f2["us_per_candidate"])))
+                   distinct_values=distinct, us_per_candidate=ms / k2 * 1e3)))
 
     o, dog, cand = octaves[0]
     walk = (cfg.image_border_width, cfg.num_intervals, cfg.max_localize_iters)
     n_k = cand[0].shape[0]
     iters, cube_values = newton_iterations(dog, *cand, cfg)
-    # layer, y, x, valid (i32) and the cubes read, 8 + 13 lanes written
-    b, by = bound_ms(n_k * 4 * 4 + cube_values * 4 + n_k * (8 + 13) * 4,
+    # layer, y, x (i32) and the validity bytes, the cubes read, 8 + 13
+    # lanes written
+    b, by = bound_ms(n_k * (3 * 4 + 1) + cube_values * 4 + n_k * (8 + 13) * 4,
                      iters * 122)
     rows.append(dict(
         name="localize_resident_r4", route="cuda", source=src,
         replaces=f"{script}:424", launches=0,
         max_abs_err=nw["per_octave"][0]["float_lanes_max_abs_err"],
-        ms=cuda_ms(lambda: PK.localize_resident_r4_lanes(dog, *cand, *walk)),
+        ms=one_kernel_ms(lambda: PK.localize_resident_r4_lanes(dog, *cand, *walk),
+                         "localize_resident_r4"),
         plain_ms=cuda_ms(lambda: PK.localize_resident_r4_lanes_plain(dog, *cand, *walk),
                          reps=5),
-        bound_ms=b, bound_by=by, library_ms=None,
+        bound_ms=b, bound_by=by, library_ms=None, floor_ms=floor,
         shape=dict(dog=list(dog.shape), candidates=n_k,
                    valid=int(cand[3].sum()), newton_steps=iters,
                    distinct_dog_values=cube_values,
+                   # K1's entry on these slots: the same kernel body
+                   k1_ms=one_kernel_ms(
+                       lambda: K.localize_newton_resident(dog, *cand, *walk),
+                       "localize_newton_resident"),
                    ms_octave0=nw["ms_octave0"])))
     for row in rows:
         emit(dict(phase="kernel", **row))

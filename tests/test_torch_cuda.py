@@ -11,7 +11,9 @@ raw descriptor histograms to rtol 1e-5 / atol 1e-3 (reduction order),
 each bit-identical from launch to launch; the descriptor kernels'
 orientation remainder and bins equal to ``fmodf`` and integer modulo on
 every float.  The probe kernels (``probes/kernels.py``): the stack and
-cube sums and the float-lane Newton kernel bit for bit; the tensor-core
+cube sums and the float-lane Newton kernel bit for bit (P4 also against
+K1, on long walks, at the stack's edges, at 4 and 6 layers), each one
+device kernel per call; the tensor-core
 descriptor histogram within 2e-3 (TF32) and 1e-5 (3xTF32) of its plain
 version's maximum.
 """
@@ -356,6 +358,18 @@ def test_feas1_stack_sum_kernel_matches_plain(dev):
     assert K.LAUNCHES["feas1_stack_sum"] == n0 + 1
     assert torch.equal(got, PK.feas1_stack_sum_plain(dog))
     assert torch.equal(got, PK.feas1_stack_sum(dog))
+    assert _one_device_kernel(lambda: PK.feas1_stack_sum(dog), "feas1_stack_sum")
+
+
+def _cube_sum_args(dev, seed, k, n_l=5, h=40, w=70):
+    """A random (n_l, h, w) stack and k candidates, some past every edge
+    of it (indices clamped alike by kernel and plain version)."""
+    rng = np.random.default_rng(seed)
+    dog = torch.as_tensor(rng.standard_normal((n_l, h, w)).astype(np.float32),
+                          device=dev)
+    idx = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
+           for lo, hi in ((-1, n_l + 1), (-1, h + 1), (-1, w + 1))]
+    return dog, *idx
 
 
 def test_feas2_cube_sums_kernel_matches_plain(dev):
@@ -363,39 +377,119 @@ def test_feas2_cube_sums_kernel_matches_plain(dev):
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
     from vfx_image_stitching_tpu_torch.probes import kernels as PK
 
-    rng = np.random.default_rng(6)
-    n_l, h, w, k = 5, 40, 70, 1000
-    dog = torch.as_tensor(rng.standard_normal((n_l, h, w)).astype(np.float32),
-                          device=dev)
-    idx = [torch.as_tensor(rng.integers(lo, hi, k).astype(np.int32), device=dev)
-           for lo, hi in ((-1, n_l + 1), (-1, h + 1), (-1, w + 1))]
+    args = _cube_sum_args(dev, 6, 1000)
     n0 = K.LAUNCHES["feas2_cube_sums"]
-    got = PK.feas2_cube_sums(dog, *idx)
+    got = PK.feas2_cube_sums(*args)
     assert K.LAUNCHES["feas2_cube_sums"] == n0 + 1
-    assert torch.equal(got, PK.feas2_cube_sums_plain(dog, *idx))
-    assert torch.equal(got, PK.feas2_cube_sums(dog, *idx))
+    assert torch.equal(got, PK.feas2_cube_sums_plain(*args))
+    assert torch.equal(got, PK.feas2_cube_sums(*args))
+    assert _one_device_kernel(lambda: PK.feas2_cube_sums(*args), "feas2_cube_sums")
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 13, 2048])
+def test_feas2_cube_sums_kernel_counts(dev, k):
+    """Candidate counts that fill part of a warp (three candidates a
+    warp) or of a block (twelve), and the probe's 2048, bit for bit."""
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    args = _cube_sum_args(dev, 60 + k, k)
+    got = PK.feas2_cube_sums(*args)
+    assert got.shape == (k,)
+    assert torch.equal(got, PK.feas2_cube_sums_plain(*args))
+
+
+# P4's walk cases: name -> (layers, h, w, border); num_intervals is
+# layers - 2.  Random candidates anywhere inside random stacks, whose
+# walks often move by more than one row or column; candidates on rows 1
+# and h - 2 and columns 1 and w - 2 with border 0 (their cubes touch the
+# stack's edges, and their moves are clamped there); stacks of 4 and 6
+# layers; a 3x4 stack (an octave smaller than a 5x5 neighbourhood).
+P4_WALK_CASES = {
+    "reload": (5, 40, 64, 1),
+    "edges": (5, 24, 40, 0),
+    "layers4": (4, 40, 64, 1),
+    "layers6": (6, 40, 64, 1),
+    "tiny": (5, 3, 4, 0),
+}
+
+
+def p4_walk_case(name: str):
+    """``(dog, [layer, y, x, valid], border, num_intervals)`` as numpy
+    arrays for :data:`P4_WALK_CASES` ``name``."""
+    n_l, h, w, border = P4_WALK_CASES[name]
+    rng = np.random.default_rng(list(P4_WALK_CASES).index(name))
+    dog = rng.integers(-80, 80, (n_l, h, w)).astype(np.float32)
+    if name == "edges":
+        n = 20
+        y = np.concatenate([np.full(n, 1), np.full(n, h - 2),
+                            rng.integers(1, h - 1, 2 * n), [1, 1, h - 2, h - 2]])
+        x = np.concatenate([rng.integers(1, w - 1, 2 * n), np.full(n, 1),
+                            np.full(n, w - 2), [1, w - 2, 1, w - 2]])
+    elif name == "tiny":
+        y, x = np.ones(6), np.tile([1, 2], 3)
+    else:
+        y, x = rng.integers(1, h - 1, 400), rng.integers(1, w - 1, 400)
+    k = len(y)
+    layer = rng.integers(1, n_l - 1, k)
+    valid = rng.random(k) > 0.1 if name in ("reload", "layers4", "layers6") \
+        else np.ones(k, bool)
+    cand = [layer.astype(np.int32), np.asarray(y, np.int32),
+            np.asarray(x, np.int32), valid]
+    return dog, cand, border, n_l - 2
+
+
+def _check_p4(dog, cand, border, num_intervals):
+    """P4 against its plain version and K1, bit for bit, one launch and
+    one device kernel per call, repeats identical; returns the plain
+    version's integer lanes."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    walk = (border, num_intervals, 5)
+    n0 = K.LAUNCHES["localize_resident_r4"]
+    outf, outi = PK.localize_resident_r4_lanes(dog, *cand, *walk)
+    assert K.LAUNCHES["localize_resident_r4"] == n0 + 1
+    want_f, want_i = PK.localize_resident_r4_lanes_plain(dog, *cand, *walk)
+    assert torch.equal(outi, want_i) and torch.equal(outf, want_f)
+    k1_i, k1_f = K.localize_newton_resident(dog, *cand, *walk)
+    assert torch.equal(outi, k1_i) and torch.equal(outf, k1_f)
+    again = PK.localize_resident_r4_lanes(dog, *cand, *walk)
+    assert torch.equal(outf, again[0]) and torch.equal(outi, again[1])
+    assert _one_device_kernel(
+        lambda: PK.localize_resident_r4_lanes(dog, *cand, *walk), "localize_resident_r4")
+    return want_i
 
 
 def test_localize_resident_r4_kernel_matches_plain(dev):
     """Float and integer lanes bit for bit, and equal to K1's."""
     from vfx_image_stitching_tpu_torch.models.sift import extrema as te
-    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
-    from vfx_image_stitching_tpu_torch.probes import kernels as PK
 
     rng = np.random.default_rng(2)
     rand = torch.as_tensor(rng.integers(-80, 80, (5, 21, 131)).astype(np.float32),
                            device=dev)
     for dog, cand in (_octave0(dev)[1:], (rand, te.extract_candidates(rand, 5, 1.0, 256))):
         assert int(cand[3].sum()) > 0
-        n0 = K.LAUNCHES["localize_resident_r4"]
-        outf, outi = PK.localize_resident_r4_lanes(dog, *cand, 5, 3, 5)
-        assert K.LAUNCHES["localize_resident_r4"] == n0 + 1
-        want_f, want_i = PK.localize_resident_r4_lanes_plain(dog, *cand, 5, 3, 5)
-        assert torch.equal(outi, want_i) and torch.equal(outf, want_f)
-        k1_i, k1_f = K.localize_newton_resident(dog, *cand, 5, 3, 5)
-        assert torch.equal(outi, k1_i) and torch.equal(outf, k1_f)
-        again = PK.localize_resident_r4_lanes(dog, *cand, 5, 3, 5)
-        assert torch.equal(outf, again[0]) and torch.equal(outi, again[1])
+        _check_p4(dog, cand, 5, 3)
+
+
+@pytest.mark.parametrize("case", list(P4_WALK_CASES))
+def test_localize_resident_r4_kernel_walk_cases(dev, case):
+    """:data:`P4_WALK_CASES` against the plain version and K1: walks
+    that compute at a cell more than one row or column from their start
+    in the random cases, candidates on the rows and columns next to every
+    edge, 4 and 6 layers, a 3x4 stack."""
+    dog, cand, border, num_intervals = p4_walk_case(case)
+    dog = torch.as_tensor(dog, device=dev)
+    cand = [torch.as_tensor(a, device=dev) for a in cand]
+    want_i = _check_p4(dog, cand, border, num_intervals)
+    valid = cand[3]
+    far = ((want_i[:, 3] - cand[2]).abs() > 1) | ((want_i[:, 4] - cand[1]).abs() > 1)
+    if case != "tiny":
+        assert int(far[valid].sum()) >= 10
+    if case == "edges":
+        h, w = dog.shape[-2:]
+        assert all(bool((c == v).any()) for c, v in ((cand[1], 1), (cand[1], h - 2),
+                                                       (cand[2], 1), (cand[2], w - 2)))
 
 
 @pytest.mark.parametrize("highest", [False, True])

@@ -12,7 +12,9 @@ which write into ``docs/``, so they are not called); P4 (the Newton
 kernel with float lanes): integer lanes, mask and cells exact against the
 JAX kernel, float fields within 1e-6 relative (the interpreted JAX kernel
 does not divide by 255 correctly rounded), and every field bit-exact
-against the port's own plain chunked path.
+against the port's own plain chunked path; on the GPU tests' walk cases
+(long moves, edges, 4 and 6 layers) its integer lanes exact against the
+JAX kernel's; its wrapper refuses a stack with too few layers.
 """
 
 import importlib.util
@@ -266,6 +268,70 @@ def test_localize_resident_r4_matches_pallas_interpret(case, monkeypatch):
     for name in plain._fields:
         assert torch.equal(getattr(plain, name)[plain.valid],
                            getattr(got, name)[plain.valid]), name
+
+
+@pytest.mark.parametrize("case", ["reload", "edges", "layers4", "layers6"])
+def test_localize_resident_r4_walk_cases_match_pallas_interpret(case, monkeypatch):
+    """The GPU tests' P4 walk cases (``test_torch_cuda.P4_WALK_CASES``:
+    walks that move more than one row or column; candidates next to every
+    edge with border 0; 4 and 6 layers) through the port's P4 on the CPU and the probe's
+    ``_localize_resident`` under ``force_tpu_interpret_mode``: integer
+    lanes exact on every row, ``center`` within 1 ulp (the module
+    docstring says why not bit for bit).  The probe's TPU slab needs
+    h >= 16, so the GPU tests' 3x4 stack is not among these."""
+    from jax.experimental.pallas import tpu as pltpu
+    from test_torch_cuda import p4_walk_case
+
+    from vfx_image_stitching_tpu.config import SiftConfig as JCfg
+    from vfx_image_stitching_tpu.models.sift import localize as jl
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    probe = _load_script("probe_localize_resident_r4")
+    dog, cand, border, num_intervals = p4_walk_case(case)
+    lanes = {}
+    finalize = jl._finalize_localized
+
+    def spy(st, *a, **kw):
+        lanes.update({n: np.asarray(v) for n, v in st.items()})
+        return finalize(st, *a, **kw)
+
+    monkeypatch.setattr(jl, "_finalize_localized", spy)
+    with pltpu.force_tpu_interpret_mode():
+        probe._localize_resident(
+            jnp.asarray(dog), *(jnp.asarray(a) for a in cand), 0,
+            JCfg(num_intervals=num_intervals, image_border_width=border))
+    tcand = [torch.as_tensor(a) for a in cand]
+    outf, outi = PK.localize_resident_r4_lanes(torch.as_tensor(dog), *tcand, border,
+                                               num_intervals, 5)
+    for j, name in enumerate(PK.INT_LANES):
+        assert np.array_equal(lanes[name].astype(np.int32), outi[:, j].numpy()), name
+    assert _ulp(lanes["center"], outf[:, PK.FLOAT_LANES.index("center")]).max() <= 1
+    far = ((outi[:, 3] - tcand[2]).abs() > 1) | ((outi[:, 4] - tcand[1]).abs() > 1)
+    assert int(far[tcand[3]].sum()) >= 10
+
+
+@pytest.mark.parametrize("n_l,num_intervals", [(4, 3), (4, 2), (7, 4)])
+def test_localize_resident_r4_needs_the_walks_layers(n_l, num_intervals):
+    """P4's wrapper, and K1's, take a stack of at least
+    ``num_intervals + 2`` layers, every layer a walk's cube can reach, on
+    either device (the plain version's result there); they raise on
+    fewer."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import kernels as PK
+
+    rng = np.random.default_rng(n_l)
+    dog = torch.as_tensor(rng.integers(-80, 80, (n_l, 24, 32)).astype(np.float32))
+    cand = [torch.full((4,), v, dtype=torch.int32) for v in (1, 10, 12)]
+    args = (dog, *cand, torch.ones(4, dtype=torch.bool), 1, num_intervals, 5)
+    pairs = ((PK.localize_resident_r4_lanes, PK.localize_resident_r4_lanes_plain),
+             (K.localize_newton_resident, K.localize_newton_plain))
+    for wrapper, plain in pairs:
+        if n_l >= num_intervals + 2:
+            got, want = wrapper(*args), plain(*args)
+            assert all(torch.equal(g, r) for g, r in zip(got, want))
+        else:
+            with pytest.raises(ValueError, match="layers"):
+                wrapper(*args)
 
 
 def test_newton_on_small_chain_cpu():

@@ -1,11 +1,10 @@
 // The Newton walk of one SIFT localization candidate, shared by the
-// package's localization kernel (K1, sift_kernels.cu: one warp per
-// candidate, newton_walk_warp) and the probe's resident kernel (P4,
-// probe_kernels.cu: one thread per candidate, newton_walk).  Both walks
-// run the same step (newton_floats, then newton_move), so they cannot
-// drift apart.  Every float is one correctly rounded IEEE single operation
-// (the library is built with -fmad=false), in the order of the plain
-// PyTorch versions (models/sift/localize.py newton_step).
+// package's localization kernel (K1, sift_kernels.cu) and the probe's
+// resident kernel (P4, probe_kernels.cu): both kernels are localize_rows
+// (newton_walk_warp, one warp per candidate, then write_lanes), so they
+// cannot drift apart.  Every float is one correctly rounded IEEE single
+// operation (the library is built with -fmad=false), in the order of the
+// plain PyTorch versions (models/sift/localize.py newton_step).
 
 #pragma once
 
@@ -111,27 +110,11 @@ __device__ __forceinline__ void newton_move(NewtonState& s, const NewtonFloats& 
 }
 
 // At most max_iters steps of compute -> store -> converge-check -> move
-// from candidate (l0, y0, x0), with the candidate's own early exit; one
-// thread reads the whole cube.
-__device__ __forceinline__ NewtonState newton_walk(
-    const float* __restrict__ dog, int h, int w, int border, int num_intervals,
-    int max_iters, int l0, int y0, int x0) {
-  const size_t hw = (size_t)h * w;
-  NewtonState s = newton_start(l0, y0, x0);
-  for (int t = 0; t < max_iters && !s.conv && !s.rej; ++t) {
-    const float* base = dog + (size_t)s.l * hw + (size_t)s.y * w + s.x;
-    float c[27];
-#pragma unroll
-    for (int j = 0; j < 27; ++j) c[j] = base[cube_offset(j, hw, w)] / 255.0f;
-    newton_move(s, newton_floats(c), h, w, border, num_intervals);
-  }
-  return s;
-}
-
-// The same walk for one candidate per warp: lane j < 27 loads and divides
-// cube value j, the 27 quotients are broadcast to every lane, and every
-// lane runs the same step on them.  So the state, and the early exit, are
-// the same in all 32 lanes.  Call with all 32 lanes of the warp.
+// from candidate (l0, y0, x0), with the candidate's own early exit, one
+// candidate per warp: lane j < 27 loads and divides cube value j, the 27
+// quotients are broadcast to every lane, and every lane runs the same step
+// on them.  So the state, and the early exit, are the same in all 32
+// lanes.  Call with all 32 lanes of the warp.
 __device__ __forceinline__ NewtonState newton_walk_warp(
     const float* __restrict__ dog, int h, int w, int border, int num_intervals,
     int max_iters, int l0, int y0, int x0, int lane) {
@@ -149,31 +132,53 @@ __device__ __forceinline__ NewtonState newton_walk_warp(
   return s;
 }
 
-// One candidate's output rows: integer lanes x, y, l, cx, cy, cl,
-// converged, rejected and the float lanes in NewtonFloats' order.
-__device__ __forceinline__ void write_lanes(const NewtonState& s, int* __restrict__ oi,
-                                            float* __restrict__ of) {
-  oi[0] = s.x;
-  oi[1] = s.y;
-  oi[2] = s.l;
-  oi[3] = s.cx;
-  oi[4] = s.cy;
-  oi[5] = s.cl;
-  oi[6] = s.conv ? 1 : 0;
-  oi[7] = s.rej ? 1 : 0;
-  const float f[NEWTON_FLOATS] = {s.f.ux,  s.f.uy,  s.f.us,  s.f.gx, s.f.gy,
-                                  s.f.gs,  s.f.center, s.f.dxx, s.f.dyy,
-                                  s.f.dss, s.f.dxy, s.f.dxs, s.f.dys};
+// Value c of one candidate's output row, as 32 bits: c < 8 the integer
+// lanes x, y, l, cx, cy, cl, converged, rejected; c = 8..20 the float lanes
+// in NewtonFloats' order.  newton_start(0, 0, 0) gives the zero row.
+__device__ __forceinline__ unsigned lane_bits(const NewtonState& s, int c) {
+  const unsigned v[NEWTON_INTS + NEWTON_FLOATS] = {
+      (unsigned)s.x, (unsigned)s.y, (unsigned)s.l, (unsigned)s.cx,
+      (unsigned)s.cy, (unsigned)s.cl, s.conv ? 1u : 0u, s.rej ? 1u : 0u,
+      __float_as_uint(s.f.ux), __float_as_uint(s.f.uy), __float_as_uint(s.f.us),
+      __float_as_uint(s.f.gx), __float_as_uint(s.f.gy), __float_as_uint(s.f.gs),
+      __float_as_uint(s.f.center), __float_as_uint(s.f.dxx),
+      __float_as_uint(s.f.dyy), __float_as_uint(s.f.dss), __float_as_uint(s.f.dxy),
+      __float_as_uint(s.f.dxs), __float_as_uint(s.f.dys)};
+  unsigned r = 0u;  // a select chain: no local-memory array for a runtime c
 #pragma unroll
-  for (int c = 0; c < NEWTON_FLOATS; ++c) of[c] = f[c];
+  for (int j = 0; j < NEWTON_INTS + NEWTON_FLOATS; ++j) r = j == c ? v[j] : r;
+  return r;
 }
 
-__device__ __forceinline__ void write_zero_lanes(int* __restrict__ oi,
-                                                 float* __restrict__ of) {
-#pragma unroll
-  for (int c = 0; c < NEWTON_INTS; ++c) oi[c] = 0;
-#pragma unroll
-  for (int c = 0; c < NEWTON_FLOATS; ++c) of[c] = 0.0f;
+// The row spread over the warp: lane c < 21 writes value c.
+__device__ __forceinline__ void write_lanes(const NewtonState& s, int* __restrict__ oi,
+                                            float* __restrict__ of, int lane) {
+  const unsigned b = lane_bits(s, lane);
+  if (lane < NEWTON_INTS)
+    oi[lane] = (int)b;
+  else if (lane < NEWTON_INTS + NEWTON_FLOATS)
+    of[lane - NEWTON_INTS] = __uint_as_float(b);
+}
+
+// The body of K1's and P4's kernels, which differ only in their C entry:
+// one candidate per warp, NEWTON_WARPS warps a block; valid candidates
+// walk, invalid ones get the zero row, and the warp writes the row.
+constexpr int NEWTON_WARPS = 8;
+
+__device__ __forceinline__ void localize_rows(
+    const float* __restrict__ dog, int h, int w, const int* __restrict__ layer,
+    const int* __restrict__ ys, const int* __restrict__ xs,
+    const unsigned char* __restrict__ valid, int k, int border, int num_intervals,
+    int max_iters, int* __restrict__ outi, float* __restrict__ outf) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * NEWTON_WARPS + (threadIdx.x >> 5);
+  if (i >= k) return;  // whole warps
+  const NewtonState s =
+      valid[i] ? newton_walk_warp(dog, h, w, border, num_intervals, max_iters,
+                                  layer[i], ys[i], xs[i], lane)
+               : newton_start(0, 0, 0);
+  write_lanes(s, outi + (size_t)i * NEWTON_INTS, outf + (size_t)i * NEWTON_FLOATS,
+              lane);
 }
 
 }  // namespace sift

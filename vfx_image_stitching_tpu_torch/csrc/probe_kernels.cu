@@ -36,51 +36,66 @@ __global__ void __launch_bounds__(P2_ROWS * P2_COLS) feas1_stack_sum_kernel(
 
 // ---------------------------------------------------------------------------
 // P3: per candidate, the sum of its 3x3x3 DoG cube (replaces the feas2
-// kernel).  One thread per candidate reads its 27 values through L2 and adds
-// them in (dl, dy, dx) order from 0.0f, the probe's own check order.  Each
+// kernel).  Nine lanes per candidate, three candidates a warp (lanes 27-31
+// idle): lane 9g + r loads row r = (dl+1)*3 + (dy+1) of candidate g's
+// cube, its three values at dx = -1, 0, 1, so a warp's 81 loads are in
+// flight at once.  Lane 9g then gathers the 27 values by shuffles and adds
+// them in (dl, dy, dx) order from 0.0f, the probe's own check order (no
+// tree, no atomics: float addition does not associate), and the three
+// sums of a warp go to three consecutive floats.  P3_WARPS warps a block,
+// so the probe's 2048 candidates make 171 blocks, every SM busy.  Each
 // index is clamped into the stack (the plain version clamps the same way).
 // ---------------------------------------------------------------------------
-__global__ void feas2_cube_sums_kernel(
+constexpr int P3_LANES = 9;
+constexpr int P3_PER_WARP = 3;
+constexpr int P3_WARPS = 4;
+
+__global__ void __launch_bounds__(P3_WARPS * 32) feas2_cube_sums_kernel(
     const float* __restrict__ dog, int n_l, int h, int w,
     const int* __restrict__ ls, const int* __restrict__ ys,
     const int* __restrict__ xs, int k, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  const int l = ls[i], y = ys[i], x = xs[i];
-  float s = 0.0f;
-  for (int dl = -1; dl <= 1; ++dl) {
-    const size_t plane = (size_t)clampi(l + dl, 0, n_l - 1) * h;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const size_t row = (plane + clampi(y + dy, 0, h - 1)) * w;
-      for (int dx = -1; dx <= 1; ++dx) s = s + dog[row + clampi(x + dx, 0, w - 1)];
-    }
+  const int lane = threadIdx.x & 31;
+  const int g = lane / P3_LANES, r = lane - g * P3_LANES;
+  const int i = (blockIdx.x * P3_WARPS + (threadIdx.x >> 5)) * P3_PER_WARP + g;
+  const bool live = g < P3_PER_WARP && i < k;
+  float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f;
+  if (live) {
+    const int l = clampi(ls[i] + r / 3 - 1, 0, n_l - 1);
+    const int y = clampi(ys[i] + r % 3 - 1, 0, h - 1);
+    const int x = xs[i];
+    const float* row = dog + ((size_t)l * h + y) * w;
+    v0 = row[clampi(x - 1, 0, w - 1)];
+    v1 = row[clampi(x, 0, w - 1)];
+    v2 = row[clampi(x + 1, 0, w - 1)];
   }
-  out[i] = s;
+  const int src = (live ? g : 0) * P3_LANES;
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < P3_LANES; ++j) {
+    s = s + __shfl_sync(0xffffffffu, v0, src + j);
+    s = s + __shfl_sync(0xffffffffu, v1, src + j);
+    s = s + __shfl_sync(0xffffffffu, v2, src + j);
+  }
+  if (live && r == 0) out[i] = s;
 }
 
 // ---------------------------------------------------------------------------
 // P4: the Newton walk with its integer lanes and the 13 float lanes of the
-// last compute (replaces _newton_resident_kernel of the probe).  One thread
-// per candidate (sift::newton_walk; K1 runs the same step one warp per
-// candidate); invalid candidates get zero rows in both outputs.
+// last compute (replaces _newton_resident_kernel of the probe).  K1's body,
+// sift::localize_rows: one warp per candidate, NEWTON_WARPS a block (a
+// walk's later cubes overlap its first, most likely served by the SM's L1;
+// a halo of the stack in shared memory measured slower, PERF.md).  Lane
+// c < 21 writes value c of the row; invalid candidates get zero rows.
+// Reads the bool mask's bytes, so a call is one device kernel.
 // ---------------------------------------------------------------------------
-__global__ void localize_resident_r4_kernel(
+__global__ void __launch_bounds__(sift::NEWTON_WARPS * 32) localize_resident_r4_kernel(
     const float* __restrict__ dog, int h, int w,
     const int* __restrict__ layer, const int* __restrict__ ys,
-    const int* __restrict__ xs, const int* __restrict__ valid, int k,
+    const int* __restrict__ xs, const unsigned char* __restrict__ valid, int k,
     int border, int num_intervals, int max_iters, float* __restrict__ outf,
     int* __restrict__ outi) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
-  float* of = outf + (size_t)i * sift::NEWTON_FLOATS;
-  int* oi = outi + (size_t)i * sift::NEWTON_INTS;
-  if (!valid[i]) {
-    sift::write_zero_lanes(oi, of);
-    return;
-  }
-  sift::write_lanes(sift::newton_walk(dog, h, w, border, num_intervals, max_iters,
-                                      layer[i], ys[i], xs[i]),
-                    oi, of);
+  sift::localize_rows(dog, h, w, layer, ys, xs, valid, k, border, num_intervals,
+                      max_iters, outi, outf);
 }
 
 // ---------------------------------------------------------------------------
@@ -281,8 +296,8 @@ int probe_feas1_stack_sum(const void* dog, int n_l, int h, int w, void* out,
 int probe_feas2_cube_sums(const void* dog, int n_l, int h, int w, const void* l,
                           const void* y, const void* x, int k, void* out,
                           void* stream) {
-  const int threads = 128;
-  feas2_cube_sums_kernel<<<(k + threads - 1) / threads, threads, 0,
+  const int per_block = P3_WARPS * P3_PER_WARP;
+  feas2_cube_sums_kernel<<<(k + per_block - 1) / per_block, P3_WARPS * 32, 0,
                            (cudaStream_t)stream>>>(
       (const float*)dog, n_l, h, w, (const int*)l, (const int*)y, (const int*)x, k,
       (float*)out);
@@ -294,12 +309,11 @@ int probe_localize_resident_r4(const void* dog, int h, int w, const void* layer,
                                int k, int border, int num_intervals,
                                int max_iters, void* outf, void* outi,
                                void* stream) {
-  const int threads = 64;
-  localize_resident_r4_kernel<<<(k + threads - 1) / threads, threads, 0,
-                                (cudaStream_t)stream>>>(
+  localize_resident_r4_kernel<<<(k + sift::NEWTON_WARPS - 1) / sift::NEWTON_WARPS,
+                                sift::NEWTON_WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const float*)dog, h, w, (const int*)layer, (const int*)y, (const int*)x,
-      (const int*)valid, k, border, num_intervals, max_iters, (float*)outf,
-      (int*)outi);
+      (const unsigned char*)valid, k, border, num_intervals, max_iters,
+      (float*)outf, (int*)outi);
   return (int)cudaGetLastError();
 }
 

@@ -24,33 +24,22 @@ using sift::clampi;
 
 // ---------------------------------------------------------------------------
 // K1: per-candidate Newton localization (replaces localize_newton_resident).
-// One warp per candidate, K1_WARPS per block (sift::newton_walk_warp): in
-// each step lanes 0-26 load and divide the 27 cube values at once, and
-// every lane runs the same step on the broadcast quotients, so the early
-// exit is the warp's own.  Lane 0 writes the integer lanes and the 13 float
-// lanes of the last compute; invalid candidates get zero rows.  The caller
-// passes only the live leading chunks.
+// sift::localize_rows, P4's body too: one warp per candidate, NEWTON_WARPS
+// per block; in each step lanes 0-26 load and divide the 27 cube values at
+// once, and every lane runs the same step on the broadcast quotients, so
+// the early exit is the warp's own.  Lane c < 21 writes value c of the
+// row (the integer lanes, then the 13 float lanes of the last compute);
+// invalid candidates get zero rows.  The caller passes only the live
+// leading chunks.
 // ---------------------------------------------------------------------------
-constexpr int K1_WARPS = 8;
-
-__global__ void __launch_bounds__(K1_WARPS * 32) localize_newton_kernel(
+__global__ void __launch_bounds__(sift::NEWTON_WARPS * 32) localize_newton_kernel(
     const float* __restrict__ dog, int h, int w,
     const int* __restrict__ layer, const int* __restrict__ ys,
     const int* __restrict__ xs, const unsigned char* __restrict__ valid, int k,
     int border, int num_intervals, int max_iters, int* __restrict__ outi,
     float* __restrict__ outf) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * K1_WARPS + (threadIdx.x >> 5);
-  if (i >= k) return;  // whole warps
-  int* oi = outi + (size_t)i * sift::NEWTON_INTS;
-  float* of = outf + (size_t)i * sift::NEWTON_FLOATS;
-  if (!valid[i]) {
-    if (lane == 0) sift::write_zero_lanes(oi, of);
-    return;
-  }
-  const sift::NewtonState s = sift::newton_walk_warp(
-      dog, h, w, border, num_intervals, max_iters, layer[i], ys[i], xs[i], lane);
-  if (lane == 0) sift::write_lanes(s, oi, of);
+  sift::localize_rows(dog, h, w, layer, ys, xs, valid, k, border, num_intervals,
+                      max_iters, outi, outf);
 }
 
 // ---------------------------------------------------------------------------
@@ -862,7 +851,8 @@ int sift_localize_newton(const void* dog, int h, int w, const void* layer,
                          const void* y, const void* x, const void* valid, int k,
                          int border, int num_intervals, int max_iters, void* outi,
                          void* outf, void* stream) {
-  localize_newton_kernel<<<(k + K1_WARPS - 1) / K1_WARPS, K1_WARPS * 32, 0,
+  localize_newton_kernel<<<(k + sift::NEWTON_WARPS - 1) / sift::NEWTON_WARPS,
+                           sift::NEWTON_WARPS * 32, 0,
                            (cudaStream_t)stream>>>(
       (const float*)dog, h, w, (const int*)layer, (const int*)y, (const int*)x,
       (const unsigned char*)valid, k, border, num_intervals, max_iters, (int*)outi,

@@ -47,21 +47,36 @@ design does about it):
     in order from 0, as the TPU kernel does; bounded by bytes (20 KB in).
 
 ``feas2_cube_sums`` (P3) replaces the ``feas2`` kernel: per candidate the
-    sum of its 27-value 3x3x3 DoG cube.  One thread per candidate reads
-    its cube through L2 and adds in (dl, dy, dx) order from 0, the order
-    of the probe's own check, so the result is bit-exact.  Bounded by
-    bytes (the distinct cube values); the TPU's aligned slab loads and
-    rolls are VMEM alignment workarounds.
+    sum of its 27-value 3x3x3 DoG cube.  Bounded by bytes (the distinct
+    cube values), which at the probe's 2048 candidates is nanoseconds: what
+    a call costs is the launch and one round of dependent loads.  So the
+    loads are spread over lanes and over the whole card: nine lanes per
+    candidate, each loading one (dl, dy) row's three consecutive values,
+    three candidates a warp, 4 warps a block (171 blocks for 2048
+    candidates, so every SM takes part).  One lane per candidate gathers
+    its 27 values by shuffles and adds them in (dl, dy, dx) order from 0,
+    the order of the probe's own check, so the result is bit-exact (no
+    tree, no atomics).  The TPU's aligned slab loads and rolls are VMEM
+    alignment workarounds.
 
 ``localize_resident_r4_lanes`` (P4) replaces ``_newton_resident_kernel``:
     K1's function, the Newton walk with its integer lanes and the 13
-    float lanes of the last compute, one thread per candidate over every
-    slot (K1 runs the same step, ``csrc/newton_step.cuh``, one warp per
-    candidate over the live chunks, so the two cannot drift apart).
-    Built with ``-fmad=false`` and correctly rounded division, the float
-    lanes follow the plain version's operations one by one.  Bounded by
-    the latency of its dependent cube loads; rows past the live chunks
-    need no count: every invalid row is zero.
+    float lanes of the last compute, over every slot.  Bounded by the
+    latency of its dependent steps, not by bytes or operations
+    (``PERF.md``).  Its kernel is K1's body behind P4's own entry and
+    count (``csrc/newton_step.cuh`` ``localize_rows``: one warp per
+    candidate, 8 a block; lane j < 27 loads and divides cube value j,
+    every lane runs the same step on the broadcast values), so the two
+    cannot drift apart; built with ``-fmad=false`` and
+    correctly rounded division, the float lanes follow the plain version's
+    operations one by one.  The TPU kernel keeps the whole DoG stack
+    resident in VMEM; the H100's counterpart would be each walk's
+    neighbourhood resident in shared memory, but a halo of every layer x
+    5 x 5 values loaded at the first step measured slower than this walk,
+    whose later cubes overlap its first, most likely served by the SM's L1
+    (``PERF.md``).  Lane c of the warp writes value c of the row's 8 + 13
+    lanes; invalid rows are zero.  The kernel reads the bool mask's bytes,
+    so a call is one device kernel.  The wrapper makes K1's checks.
 """
 
 from __future__ import annotations
@@ -77,6 +92,7 @@ from vfx_image_stitching_tpu_torch.models.sift.kernels import (
     _require,
     _same_device,
     _window_coords,
+    check_newton_inputs,
     localize_newton_plain,
 )
 from vfx_image_stitching_tpu_torch.models.sift.localize import (  # noqa: F401
@@ -192,27 +208,23 @@ def localize_resident_r4_lanes(
     """Final Newton state of each candidate of one octave's (L, H, W) f32
     DoG stack (0..255-scale values), float and integer lanes (see
     :func:`localize_resident_r4_lanes_plain`).  Valid candidates must lie
-    inside the stack's interior (as ``extract_candidates`` guarantees)."""
+    inside the stack's interior (as ``extract_candidates`` guarantees);
+    K1's checks (``kernels.check_newton_inputs``), on either device."""
     name = "localize_resident_r4"
-    dev = _same_device((dog, layer, y, x, cand_valid), name)
-    _require(dog, torch.float32, 3, name)
-    _ints((layer, y, x), name)
-    _require(cand_valid, torch.bool, 1, name)
-    if cand_valid.shape[0] != layer.shape[0]:
-        raise ValueError(f"{name}: candidate arrays differ in length")
+    dev = check_newton_inputs(dog, layer, y, x, cand_valid, num_intervals, name)
     if dev.type == "cpu":
         return localize_resident_r4_lanes_plain(
             dog, layer, y, x, cand_valid, border, num_intervals, max_iters)
-    dog, layer, y, x = (t.contiguous() for t in (dog, layer, y, x))
-    valid = cand_valid.to(torch.int32)
+    dog, layer, y, x, cand_valid = (
+        t.contiguous() for t in (dog, layer, y, x, cand_valid))
     k = layer.shape[0]
     outf = torch.empty((k, len(FLOAT_LANES)), dtype=torch.float32, device=dev)
     outi = torch.empty((k, len(INT_LANES)), dtype=torch.int32, device=dev)
     if k == 0:
         return outf, outi
-    n_l, h, w = dog.shape
+    _, h, w = dog.shape
     _launch(name, dev, "probe_localize_resident_r4",
-            _ptr(dog), h, w, _ptr(layer), _ptr(y), _ptr(x), _ptr(valid), k,
+            _ptr(dog), h, w, _ptr(layer), _ptr(y), _ptr(x), _ptr(cand_valid), k,
             border, num_intervals, max_iters, _ptr(outf), _ptr(outi))
     return outf, outi
 
