@@ -1,4 +1,4 @@
-"""Chip smoke run of the PyTorch port: the SIFT panorama stitch on one GPU.
+"""Chip smoke run of the PyTorch port: the SIFT and Harris stitches on one GPU.
 
     python3 chip_smoke.py
 
@@ -22,14 +22,20 @@ descriptor kernels' arithmetic against the library's on every float
 ``vfx_image_stitching_tpu_torch/probes/`` (``probe_localize``: the stack
 sum, cube sums and float-lane Newton kernels, P2-P4, each timed as one
 device kernel beside ``floor_ms``, the device time of a one-element
-``fill_``, a launch that does no work; P4 beside K1 on the same slots;
+``fill_``, a launch that does no work, and ``latency_ms``, a one-element
+copy out of the kernel's stack, a launch that reads once from L2 and
+writes once; P4 beside K1 on the same slots;
 ``probe_desc``: the tensor-core descriptor histogram, P1, also against K5
 on the chain's small-bucket rows); then the end-to-end stitch of the chain (one
 warm-up, timed runs, launch counts, a profiled run, the whole chain on
 the CPU against the card's first run, shifts, pairs, escalation counts
 and bytes; the first four images on the card and the CPU, and those four
-again with ``VFX_ORIENT_V2=0``).  Each path's run must launch its
-kernels and no other (``PATHS``), and each kernel row reports the
+again with ``VFX_ORIENT_V2=0``); then the chain stitched with the
+Harris backend, the reference's default (``harris_stitch``: every pair
+matched, repeats identical, wall median, device time and kernels of a
+profiled run, idle share, the CPU's shifts, pairs and bytes equal).  Each
+path's run must launch its kernels and no other (``PATHS``; the Harris
+stitch none), and each kernel row reports the
 launches of its path's run.  The line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script then exits non-zero; without CUDA it exits
@@ -94,6 +100,8 @@ PATHS = {
                        "localize_resident_r4"),
     # K5 here only for the A/B against P1 on the same rows
     "probe_desc": ("desc_scratch_dot", "descriptor_histograms"),
+    # the Harris stitch runs plain tensor ops only: no kernel may launch
+    "harris": (),
 }
 KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
 # float operations of the descriptor-histogram kernel per masked sample:
@@ -652,7 +660,8 @@ def probe_localize(dev):
     checks and device times, and the rows of P2, P3 and P4 (P4 on octave
     0's candidate slots, beside K1 on the same slots), each timed as one
     device kernel per call beside ``floor_ms``, the device time of a
-    launch that does no work.  Returns the rows and the path run's
+    launch that does no work, and ``latency_ms``, of a one-element copy
+    out of the same stack.  Returns the rows and the path run's
     launches."""
     import torch
 
@@ -682,6 +691,13 @@ def probe_localize(dev):
     script = "scripts/probe_localize_resident_r4.py"
     one = torch.zeros(1, device=dev)
     floor = cuda_ms(lambda: one.fill_(0.0))
+
+    def latency(stack):
+        """Device ms of one copy of a single element of ``stack`` into a
+        one-element tensor: a launch that reads its input once from L2
+        and writes once."""
+        return cuda_ms(lambda: one.copy_(stack[0, 0, :1]))
+
     rows = []
 
     dog1 = R.feas1_input(dev)
@@ -694,6 +710,7 @@ def probe_localize(dev):
         plain_ms=cuda_ms(lambda: PK.feas1_stack_sum_plain(dog1), reps=5),
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(lambda: dog1[:, :8, :128].sum(0)), floor_ms=floor,
+        latency_ms=latency(dog1),
         shape=dict(stack=list(dog1.shape), stack_mb=f1["stack_mb"],
                    l2_mb=f1.get("l2_mb"))))
 
@@ -709,6 +726,7 @@ def probe_localize(dev):
         replaces=f"{script}:170", launches=0, max_abs_err=f2["max_err"],
         ms=ms, plain_ms=cuda_ms(lambda: PK.feas2_cube_sums_plain(*args2), reps=5),
         bound_ms=b, bound_by=by, library_ms=None, floor_ms=floor,
+        latency_ms=latency(args2[0]),
         shape=dict(stack=list(args2[0].shape), candidates=k2,
                    distinct_values=distinct, us_per_candidate=ms / k2 * 1e3)))
 
@@ -729,6 +747,7 @@ def probe_localize(dev):
         plain_ms=cuda_ms(lambda: PK.localize_resident_r4_lanes_plain(dog, *cand, *walk),
                          reps=5),
         bound_ms=b, bound_by=by, library_ms=None, floor_ms=floor,
+        latency_ms=latency(dog),
         shape=dict(dog=list(dog.shape), candidates=n_k,
                    valid=int(cand[3].sum()), newton_steps=iters,
                    distinct_dog_values=cube_values,
@@ -840,10 +859,10 @@ def probe_desc(calls: dict, dev):
     return row, launches
 
 
-def run_stitch(folder: str, device: str):
+def run_stitch(folder: str, device: str, backend: str = "sift"):
     from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
 
-    return stitch_panorama(folder, backend="sift", crop_margin=15,
+    return stitch_panorama(folder, backend=backend, crop_margin=15,
                            device=device)
 
 
@@ -860,7 +879,7 @@ def check_result(res, n: int) -> None:
         raise AssertionError("a SIFT stage still overflowed its capacity")
 
 
-def profile_stitch(folder: str, median_s: float) -> dict:
+def profile_stitch(folder: str, median_s: float, backend: str = "sift") -> dict:
     """One stitch under ``torch.profiler``: the device's busy time, its
     idle share of the unprofiled median wall (the profiler slows the host
     side, so its own wall is reported beside it), and the kernels that
@@ -872,7 +891,7 @@ def profile_stitch(folder: str, median_s: float) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run_stitch(folder, "cuda")
+        run_stitch(folder, "cuda", backend)
         wall_s = time.time() - t0
     dev_events = [
         e for e in prof.key_averages()
@@ -883,7 +902,7 @@ def profile_stitch(folder: str, median_s: float) -> dict:
     busy_s = sum(e.self_device_time_total for e in dev_events) / 1e6
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     return dict(
-        phase="profile", device_busy_s=busy_s,
+        phase="profile", backend=backend, device_busy_s=busy_s,
         unprofiled_median_s=median_s,
         device_idle_share=1 - busy_s / median_s,
         profiled_wall_s=wall_s,
@@ -969,6 +988,59 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
     if not same:
         raise AssertionError("CUDA and CPU runs of the first 4 images differ")
     out["orient_v1"] = orient_v1(sub, gpu)
+    return out
+
+
+def harris_stitch(folder: str, card: str, timed_runs: int = 3) -> dict:
+    """The chain stitched with the Harris backend (the reference's
+    default, ``max_points`` = 200) on the card: one warm-up run with the
+    launch counts at 0 (no kernel of the repository may launch), all 17
+    pairs matched, ``timed_runs`` timed runs identical to it, one
+    profiled stitch (device time, device kernels, idle share), and the
+    chain on the CPU with equal shifts and pairs and the same bytes."""
+    import time
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    K.reset_launch_counts()
+    t0 = time.time()
+    res = run_stitch(folder, "cuda", "harris")
+    first_s = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    check_result(res, N_IMAGES)
+    check_launches("harris", launches)
+    runs = []
+    for _ in range(timed_runs):
+        t0 = time.time()
+        r = run_stitch(folder, "cuda", "harris")
+        runs.append((time.time() - t0, r))
+        if (r.shifts != res.shifts or r.pairs != res.pairs
+                or not np.array_equal(r.panorama, res.panorama)):
+            raise AssertionError("repeated Harris runs disagree")
+    walls = sorted(w for w, _ in runs)
+    median_run = sorted(runs, key=lambda t: t[0])[len(runs) // 2][1]
+    median_s = float(np.median(walls))
+    prof = profile_stitch(folder, median_s, "harris")
+    t0 = time.time()
+    cpu = run_stitch(folder, "cpu", "harris")
+    cpu_s = time.time() - t0
+    same = (res.shifts == cpu.shifts and res.pairs == cpu.pairs
+            and np.array_equal(res.panorama, cpu.panorama))
+    out = dict(
+        phase="harris_stitch", card=card, images=N_IMAGES,
+        shape=[IMG_H, IMG_W], first_run_s=first_s, median_s=median_s,
+        runs_s=walls,
+        phases_s={k: v for k, v in median_run.timings.items()
+                  if k not in ("esc_n_pairs", "esc_n_rows", "passes")},
+        device_busy_s=prof["device_busy_s"],
+        device_kernels=prof["device_kernels"],
+        device_idle_share=prof["device_idle_share"],
+        profiled_wall_s=prof["profiled_wall_s"], top=prof["top"],
+        launches=launches, panorama=list(res.panorama.shape),
+        cpu_equal=same, cpu_s=cpu_s, shifts=res.shifts, cpu_shifts=cpu.shifts)
+    emit(out)
+    if not same:
+        raise AssertionError("CUDA and CPU Harris runs of the chain differ")
     return out
 
 
@@ -1063,7 +1135,9 @@ def main() -> int:
         p1_row, p_desc_launches = probe_desc(inp["calls"], dev)
         rows += [p1_row, *p_rows]
         e2e = end_to_end(work, folder)
+        harris = harris_stitch(folder, smi)
     by_path = dict(stitch=e2e["launches"], orient_v1=e2e["orient_v1"]["launches"],
+                   harris=harris["launches"],
                    descriptor_histogram=k5_launches,
                    probe_localize=p_loc_launches, probe_desc=p_desc_launches)
     for row in rows:

@@ -10,12 +10,15 @@ kernels, 36 and 128 bins, each load stage) to rtol 2e-5 / atol 2e-3 and
 raw descriptor histograms to rtol 1e-5 / atol 1e-3 (reduction order),
 each bit-identical from launch to launch; the descriptor kernels'
 orientation remainder and bins equal to ``fmodf`` and integer modulo on
-every float.  The probe kernels (``probes/kernels.py``): the stack and
-cube sums and the float-lane Newton kernel bit for bit (P4 also against
+every float.  The probe kernels (``probes/kernels.py``): the stack sum (every
+compiled layer count and both load widths) and cube sums and the
+float-lane Newton kernel bit for bit (P4 also against
 K1, on long walks, at the stack's edges, at 4 and 6 layers), each one
 device kernel per call; the tensor-core
 descriptor histogram within 2e-3 (TF32) and 1e-5 (3xTF32) of its plain
-version's maximum.
+version's maximum.  The Harris backend (plain tensor ops) on the card
+against the CPU: keypoints equal, descriptors within 1e-5, a chain's
+shifts, pairs and panorama bytes equal.
 """
 
 import numpy as np
@@ -340,19 +343,40 @@ def test_stitch_on_cuda_matches_cpu(dev, tmp_path):
     from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
 
     synth_chain(str(tmp_path), 3, 96, 128, seed=4, focal=300.0)
-    gpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cuda")
-    cpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cpu")
+    gpu = stitch_panorama(str(tmp_path), backend="sift", crop_margin=8,
+                          device="cuda")
+    cpu = stitch_panorama(str(tmp_path), backend="sift", crop_margin=8,
+                          device="cpu")
     assert gpu.shifts == cpu.shifts and gpu.pairs == cpu.pairs
     assert np.array_equal(gpu.panorama, cpu.panorama)
 
 
-def test_feas1_stack_sum_kernel_matches_plain(dev):
+def _feas1_stack(dev, n_l, layout, seed=5):
+    """An (n_l, 20, w) f32 stack laid out as ``layout``: ``aligned`` (w =
+    200, 16-byte rows), ``w130`` (W % 4 != 0), ``col1`` (a view at column
+    offset 1 of an (n_l, 20, 201) stack: misaligned base, strided rows),
+    ``flat1`` (contiguous, its base one float past an aligned buffer)."""
+    rng = np.random.default_rng(seed)
+    w = {"aligned": 200, "w130": 130, "col1": 201, "flat1": 200}[layout]
+    full = torch.as_tensor(
+        rng.standard_normal(n_l * 20 * w + 1).astype(np.float32), device=dev)
+    if layout == "flat1":
+        return full[1:].view(n_l, 20, w)
+    dog = full[:-1].view(n_l, 20, w)
+    return dog[:, :, 1:] if layout == "col1" else dog
+
+
+@pytest.mark.parametrize("n_l", [*range(1, 10), 17])
+@pytest.mark.parametrize("layout", ["aligned", "w130", "col1", "flat1"])
+def test_feas1_stack_sum_kernel_matches_plain(dev, n_l, layout):
+    """P2 bit-exact against its plain version at each compiled layer count
+    (1-8), past it (9, 17: chunks of 8), on 16-byte and 4-byte loads; a
+    strided view is read in place: one device kernel per call."""
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
     from vfx_image_stitching_tpu_torch.probes import kernels as PK
 
-    rng = np.random.default_rng(5)
-    dog = torch.as_tensor(rng.standard_normal((5, 20, 200)).astype(np.float32),
-                          device=dev)
+    dog = _feas1_stack(dev, n_l, layout)
+    assert (dog.data_ptr() % 16 == 0) == (layout in ("aligned", "w130"))
     n0 = K.LAUNCHES["feas1_stack_sum"]
     got = PK.feas1_stack_sum(dog)
     assert K.LAUNCHES["feas1_stack_sum"] == n0 + 1
@@ -552,3 +576,52 @@ def test_desc_scratch_dot_kernel_masked_and_edges(dev, highest):
         lambda: PK.desc_scratch_dot(*targs, hs, ws, highest=highest), "desc_scratch_dot")
     k5 = K.descriptor_histograms(*targs, PK.P1_HALF).reshape(got.shape)
     assert float((got - k5).abs().max() / k5.abs().max()) <= (1e-5 if highest else 2e-3)
+
+
+# ---------------------------------------------------------------------------
+# Harris backend (plain tensor ops, no kernel of this repository)
+# ---------------------------------------------------------------------------
+
+def test_harris_batch_on_cuda_matches_cpu(dev):
+    """``harris_batch`` on the card against the CPU on a synthetic batch:
+    keypoints, validity and response equal (the blurs are elementwise
+    IEEE ops in the same order), descriptors within the reference's 1e-5
+    (reduction order); repeated runs bit-identical."""
+    from vfx_image_stitching_tpu_torch.models.harris import (
+        harris_batch,
+        harris_corners,
+    )
+    from vfx_image_stitching_tpu_torch.utils.synthetic import make_scene
+
+    batch = torch.as_tensor(np.stack([make_scene(192, 256, s) for s in range(3)]))
+    gxy, gd, gv = harris_batch(batch.to(dev))
+    cxy, cd, cv = harris_batch(batch)
+    assert torch.equal(gv.cpu(), cv) and torch.equal(gxy.cpu(), cxy)
+    assert cv.sum() > 50
+    assert float((gd.cpu()[cv] - cd[cv]).abs().max()) < 1e-5
+    for a, b in zip((gxy, gd, gv), harris_batch(batch.to(dev))):
+        assert torch.equal(a, b)
+    g = harris_corners(batch.to(dev))
+    c = harris_corners(batch)
+    assert torch.equal(g[2].cpu(), c[2])
+
+
+def test_harris_stitch_on_cuda_matches_cpu(dev, tmp_path):
+    """A small chain stitched with Harris (the default backend) on the card
+    and on the CPU: equal shifts and pairs, byte-identical panorama; a
+    repeat on the card is identical; none of the repository's kernels
+    launches."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
+
+    synth_chain(str(tmp_path), 4, 128, 168, seed=11, focal=300.0)
+    before = dict(K.LAUNCHES)
+    gpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cuda")
+    assert K.LAUNCHES == before
+    cpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cpu")
+    again = stitch_panorama(str(tmp_path), crop_margin=8, device="cuda")
+    assert all(p is not None for p in gpu.pairs)
+    assert gpu.shifts == cpu.shifts and gpu.pairs == cpu.pairs
+    assert np.array_equal(gpu.panorama, cpu.panorama)
+    assert again.shifts == gpu.shifts and np.array_equal(again.panorama, gpu.panorama)

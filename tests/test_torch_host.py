@@ -419,7 +419,8 @@ caps = SiftCapacities(candidate_caps=(256, 96, 64), localized_caps=(128, 64),
                       max_radius=10, max_half_width=14)
 cfg = StitchConfig()
 cfg = dataclasses.replace(cfg, sift=dataclasses.replace(cfg.sift, capacities=caps))
-res = port.stitch_panorama({str(tmp_path)!r}, cfg=cfg, crop_margin=4, device="cpu")
+res = port.stitch_panorama({str(tmp_path)!r}, backend="sift", cfg=cfg, crop_margin=4,
+                           device="cpu")
 assert res.panorama.ndim == 3 and len(res.shifts) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "vfx_image_stitching_tpu."))
@@ -470,7 +471,8 @@ def test_stitch_degrades_on_unreadable_image(tmp_path):
     cfg = StitchConfig()
     cfg = dataclasses.replace(cfg, sift=dataclasses.replace(cfg.sift,
                                                             capacities=caps))
-    res = stitch_panorama(folder, cfg=cfg, crop_margin=2, device="cpu")
+    res = stitch_panorama(folder, backend="sift", cfg=cfg, crop_margin=2,
+                          device="cpu")
     assert res.shifts == [(0.0, 0.0), (0.0, 0.0)]
     assert res.pairs == [((0.0, 0.0), (0.0, 0.0))] * 2
     assert res.panorama.ndim == 3

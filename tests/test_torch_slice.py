@@ -100,7 +100,7 @@ def test_stitch_matches_jax(chain, configs):
     jcfg, tcfg = configs
     with jax.disable_jit():
         ref = jstitch(chain, backend="sift", crop_margin=8, cfg=jcfg)
-    got = tstitch(chain, crop_margin=8, cfg=tcfg, device="cpu")
+    got = tstitch(chain, backend="sift", crop_margin=8, cfg=tcfg, device="cpu")
     assert len(got.shifts) == N - 1 and all(p is not None for p in got.pairs)
     assert got.shifts == ref.shifts
     assert got.pairs == ref.pairs

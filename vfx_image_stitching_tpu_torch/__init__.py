@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the panorama stitcher.
 
 Beside the JAX package ``vfx_image_stitching_tpu`` (the reference), this
-package runs the same SIFT stitch on an NVIDIA GPU: dense stages are plain
-PyTorch on tensors, and the three stages the JAX package wrote as Pallas
+package runs the same Harris (the default) and SIFT stitches on an NVIDIA
+GPU: dense stages are plain PyTorch on tensors, and the three SIFT stages
+the JAX package wrote as Pallas
 TPU kernels (Newton localization, orientation histograms, descriptor
 window gather) are CUDA C++ kernels in ``csrc/`` built with ``nvcc`` at
 first use.  On CPU tensors every kernel wrapper runs its plain PyTorch

@@ -20,18 +20,59 @@ using sift::clampi;
 
 // ---------------------------------------------------------------------------
 // P2: sum over the layers of the stack's (8, 128) corner (replaces the
-// feas1 kernel).  One block of 1024 threads, one output each; each adds its
-// layers in order from 0.0f, as the TPU kernel's acc = acc + dog[l, :8, :128].
+// feas1 kernel).  8 blocks, one per row, of one warp each, so no SM takes
+// more than a warp; each thread owns four consecutive columns.  All of a
+// thread's layer loads are issued before its first add: NL layers known
+// at compile time (1..8), or, for any other count, chunks of
+// P2_CHUNK loads each, so every add waits on the one L2 round trip of its
+// chunk and not on a load of its own.  Each column's layers are added in
+// order from 0.0f, as the TPU kernel's acc = acc + dog[l, :8, :128], so the
+// result is the plain version's bit for bit.  Where the base and both
+// strides keep every row 16 bytes aligned, a layer's four columns are one
+// 16-byte load; otherwise four 4-byte loads (a uniform branch: one kernel).
 // ---------------------------------------------------------------------------
-constexpr int P2_ROWS = 8, P2_COLS = 128;
+constexpr int P2_ROWS = 8, P2_COLS = 128, P2_VEC = 4;
+constexpr int P2_THREADS = P2_COLS / P2_VEC;
+constexpr int P2_CHUNK = 8;
 
-__global__ void __launch_bounds__(P2_ROWS * P2_COLS) feas1_stack_sum_kernel(
-    const float* __restrict__ dog, int n_l, int h, int w, float* __restrict__ out) {
-  const int t = threadIdx.x;
-  const int r = t / P2_COLS, c = t % P2_COLS;
-  float acc = 0.0f;
-  for (int l = 0; l < n_l; ++l) acc = acc + dog[((size_t)l * h + r) * w + c];
-  out[t] = acc;
+template <bool VEC>
+__device__ __forceinline__ float4 p2_load(const float* p) {
+  if (VEC) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+template <int NL, bool VEC>
+__device__ __forceinline__ float4 p2_sum(const float* p, int n_l, long long plane) {
+  constexpr int chunk = NL > 0 ? NL : P2_CHUNK;
+  const int n = NL > 0 ? NL : n_l;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int l0 = 0; l0 < n; l0 += chunk) {  // one pass when NL > 0
+    float4 v[chunk];
+#pragma unroll
+    for (int j = 0; j < chunk; ++j)
+      if (l0 + j < n) v[j] = p2_load<VEC>(p + (l0 + j) * plane);
+#pragma unroll
+    for (int j = 0; j < chunk; ++j) {
+      if (l0 + j < n) {
+        acc.x = acc.x + v[j].x;
+        acc.y = acc.y + v[j].y;
+        acc.z = acc.z + v[j].z;
+        acc.w = acc.w + v[j].w;
+      }
+    }
+  }
+  return acc;
+}
+
+template <int NL>
+__global__ void __launch_bounds__(P2_THREADS) feas1_stack_sum_kernel(
+    const float* __restrict__ dog, int n_l, long long plane, long long row,
+    float* __restrict__ out) {
+  const float* p = dog + blockIdx.x * row + threadIdx.x * P2_VEC;
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(dog) | (uintptr_t)((plane | row) * sizeof(float))) & 15) == 0;
+  reinterpret_cast<float4*>(out)[blockIdx.x * P2_THREADS + threadIdx.x] =
+      vec ? p2_sum<NL, true>(p, n_l, plane) : p2_sum<NL, false>(p, n_l, plane);
 }
 
 // ---------------------------------------------------------------------------
@@ -285,11 +326,23 @@ __global__ void __launch_bounds__(P1_WARPS * 32) desc_scratch_dot_kernel(
 
 extern "C" {
 
-int probe_feas1_stack_sum(const void* dog, int n_l, int h, int w, void* out,
-                          void* stream) {
-  if (h < P2_ROWS || w < P2_COLS) return (int)cudaErrorInvalidValue;
-  feas1_stack_sum_kernel<<<1, P2_ROWS * P2_COLS, 0, (cudaStream_t)stream>>>(
-      (const float*)dog, n_l, h, w, (float*)out);
+int probe_feas1_stack_sum(const void* dog, int n_l, int h, int w, long long plane,
+                          long long row, void* out, void* stream) {
+  if (n_l < 0 || h < P2_ROWS || w < P2_COLS) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const float*, int, long long, long long, float*);
+  switch (n_l) {
+    case 1: kernel = feas1_stack_sum_kernel<1>; break;
+    case 2: kernel = feas1_stack_sum_kernel<2>; break;
+    case 3: kernel = feas1_stack_sum_kernel<3>; break;
+    case 4: kernel = feas1_stack_sum_kernel<4>; break;
+    case 5: kernel = feas1_stack_sum_kernel<5>; break;
+    case 6: kernel = feas1_stack_sum_kernel<6>; break;
+    case 7: kernel = feas1_stack_sum_kernel<7>; break;
+    case 8: kernel = feas1_stack_sum_kernel<8>; break;
+    default: kernel = feas1_stack_sum_kernel<0>;
+  }
+  kernel<<<P2_ROWS, P2_THREADS, 0, (cudaStream_t)stream>>>((const float*)dog, n_l, plane,
+                                                          row, (float*)out);
   return (int)cudaGetLastError();
 }
 

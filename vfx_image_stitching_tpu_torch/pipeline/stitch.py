@@ -1,18 +1,19 @@
-"""End-to-end panorama stitching, the single-panorama SIFT path.
+"""End-to-end panorama stitching, one panorama, Harris or SIFT features.
 
 Pipeline phases mirror the reference's ``run_panorama``
-(image_stitching_sift.py:254-389):
+(image_stitching_harris.py / image_stitching_sift.py):
 
   1. load + cylindrical projection          [host decode, device gather]
-  2. pairwise shifts: SIFT features, nearest-neighbor matching and voting
-     translation RANSAC, batched over the N-1 adjacent pairs  [device]
-  3. knife-edge escalation of material borderline rows         [host f64]
+  2. pairwise shifts: features (Harris corners, or SIFT), nearest-neighbor
+     matching and voting translation RANSAC, batched over the N-1
+     adjacent pairs                                            [device]
+  3. knife-edge escalation of material borderline rows (SIFT)  [host f64]
   4. drift correction                                          [host f64]
   5. sequential compositing and rectangling crop               [host]
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 without CUDA they raise rather than fall back.  TF32 is turned off for
-matmuls and cuDNN: the SIFT match distances are exact only in full f32
+matmuls and cuDNN: the match distances are exact only in full f32
 (match/nn.py).
 """
 
@@ -43,6 +44,7 @@ from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
 )
 from vfx_image_stitching_tpu_torch.io import load_dataset, stack_dataset
 from vfx_image_stitching_tpu_torch.match.nn import match_descriptors
+from vfx_image_stitching_tpu_torch.models.harris import harris_batch
 from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_f32
 
 
@@ -303,8 +305,10 @@ def _autoscale_sift_caps(cfg: StitchConfig, hw) -> Tuple[StitchConfig, bool]:
     capacities are the user's contract.  At reference-dataset sizes this
     is the identity.  Returns ``(cfg, managed)``: ``managed`` is True
     when the capacities are framework-owned, the gate for the overflow
-    recovery loop.
+    recovery loop (never for a backend other than SIFT).
     """
+    if cfg.backend != "sift":
+        return cfg, False
     caps = cfg.sift.capacities
     if caps != SiftCapacities():
         return cfg, False
@@ -316,6 +320,25 @@ def _autoscale_sift_caps(cfg: StitchConfig, hw) -> Tuple[StitchConfig, bool]:
     ), True
 
 
+def extract_features(cyl: torch.Tensor, cfg: StitchConfig):
+    """Batched feature extraction of the (N, H, W, 3) uint8 cylindrical
+    BGR batch: Harris on the BGR images, SIFT on their gray.
+
+    Returns ``(xy, descs, valid_kp, meta, stats)``; ``meta``/``stats``
+    are ``None`` for the Harris backend.
+    """
+    if cfg.backend == "harris":
+        xy, descs, valid_kp = harris_batch(cyl, cfg.harris)
+        return xy, descs, valid_kp, None, None
+    if cfg.backend != "sift":
+        raise ValueError(f"unknown backend {cfg.backend!r} (harris or sift)")
+    from vfx_image_stitching_tpu_torch.models.sift.extract import (
+        sift_batch_with_stats,
+    )
+
+    return sift_batch_with_stats(bgr_to_gray_f32(cyl), cfg.sift)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -323,24 +346,22 @@ def _sync(dev: torch.device) -> None:
 
 def stitch_panorama(
     folder: str,
-    backend: str = "sift",
+    backend: str = "harris",
     pano_file: Optional[str] = None,
     crop_margin: Optional[int] = None,
     cfg: Optional[StitchConfig] = None,
     verbose: bool = False,
     device="cuda",
 ) -> StitchResult:
-    """Stitch one dataset folder end to end (SIFT backend).
+    """Stitch one dataset folder end to end with the ``backend``'s
+    features (``"harris"``, the reference's default, or ``"sift"``; it
+    overrides ``cfg.backend``).
 
     Images are decoded once; when a SIFT stage count reaches its
     framework-owned capacity, the run repeats with capacities grown to fit
     the measured counts (at most three times), reusing the decoded images.
     ``timings["passes"]`` counts the passes.
     """
-    if backend != "sift":
-        raise NotImplementedError(
-            f"backend {backend!r}: the PyTorch port runs the SIFT backend only"
-        )
     dev = resolve_device(device)
     cfg = cfg or StitchConfig(backend=backend)
     if cfg.backend != backend:
@@ -395,16 +416,11 @@ def _stitch_inner(
     cyl = cylindrical_project_batch(
         torch.as_tensor(batch).to(dev), [float(f) for f in focals]
     )
-    gray = bgr_to_gray_f32(cyl)
     _sync(dev)
     t1 = time.time()
     timings["project"] = t1 - t0
 
-    from vfx_image_stitching_tpu_torch.models.sift.extract import (
-        sift_batch_with_stats,
-    )
-
-    xy, descs, valid_kp, meta, stats = sift_batch_with_stats(gray, cfg.sift)
+    xy, descs, valid_kp, meta, stats = extract_features(cyl, cfg)
     _sync(dev)
     t2 = time.time()
     timings["extract"] = t2 - t1

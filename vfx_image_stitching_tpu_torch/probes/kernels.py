@@ -43,8 +43,14 @@ design does about it):
     layers of the stack's (8, 128) corner, which on the TPU tested whether
     a whole 15.7 MB DoG stack fits in VMEM as one block.  On an H100 the
     question's answer is the 50 MB L2, which the stack fits, not shared
-    memory (227 KB).  One block of 1024 threads adds each output's layers
-    in order from 0, as the TPU kernel does; bounded by bytes (20 KB in).
+    memory (227 KB).  Its byte bound (20 KB in, 4 KB out) is nanoseconds,
+    so what a call costs is the launch and one round trip to L2: 8 blocks
+    of one warp (one per row, so no SM takes more than a warp), four
+    columns a thread read with 16-byte loads where the base and strides
+    allow (4-byte loads otherwise, in the same kernel), and every layer
+    load of a thread issued before its first add (layer counts 1-8
+    compiled in, chunks of 8 beyond).  Each output's layers are added in
+    order from 0, as the TPU kernel does, so the result is bit-exact.
 
 ``feas2_cube_sums`` (P3) replaces the ``feas2`` kernel: per candidate the
     sum of its 27-value 3x3x3 DoG cube.  Bounded by bytes (the distinct
@@ -128,7 +134,9 @@ def feas1_stack_sum_plain(dog: torch.Tensor) -> torch.Tensor:
 
 def feas1_stack_sum(dog: torch.Tensor) -> torch.Tensor:
     """(8, 128) sum over the layers of an (L, H, W) f32 stack's corner,
-    H >= 8, W >= 128 (see :func:`feas1_stack_sum_plain`); bit-exact."""
+    H >= 8, W >= 128 (see :func:`feas1_stack_sum_plain`); bit-exact.  The
+    kernel takes the stack's layer and row strides, so a view into a
+    wider stack is read in place (one device kernel)."""
     name = "feas1_stack_sum"
     dev = _same_device((dog,), name)
     _require(dog, torch.float32, 3, name)
@@ -137,9 +145,11 @@ def feas1_stack_sum(dog: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: needs H >= 8 and W >= 128, got {tuple(dog.shape)}")
     if dev.type == "cpu":
         return feas1_stack_sum_plain(dog)
-    dog = dog.contiguous()
+    if dog.stride(2) != 1:
+        dog = dog.contiguous()
     out = torch.empty((8, 128), dtype=torch.float32, device=dev)
-    _launch(name, dev, "probe_feas1_stack_sum", _ptr(dog), n_l, h, w, _ptr(out))
+    _launch(name, dev, "probe_feas1_stack_sum", _ptr(dog), n_l, h, w,
+            dog.stride(0), dog.stride(1), _ptr(out))
     return out
 
 
