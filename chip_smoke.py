@@ -1,4 +1,5 @@
-"""Chip smoke run of the PyTorch port: the SIFT and Harris stitches on one GPU.
+"""Chip smoke run of the PyTorch port: the SIFT and Harris stitches and the
+rest of the stitch surface on one GPU.
 
     python3 chip_smoke.py
 
@@ -36,7 +37,20 @@ matched, repeats identical, wall median, device time and kernels of a
 profiled run, idle share, the CPU's shifts, pairs and bytes equal).  Each
 path's run must launch its kernels and no other (``PATHS``; the Harris
 stitch none), and each kernel row reports the
-launches of its path's run.  The line before the last is the kernel
+launches of its path's run.  Then the rest of the stitch surface on the
+chain: ``compose_routes`` (both backends' stitches, whose compose is
+the device fold, with and without the step capture, against the host
+fold on the same plan: equal bytes, 17 steps, each route's compose time,
+the device fold's device time and kernels), ``stage_api``
+(``compute_pairwise_shifts`` + ``finalize_to_panorama`` against
+``stitch_panorama``, a saved ``.png``),
+``multi`` (``stitch_many`` over folders shaped like BASELINE's
+wind/out/parrington/grail run against the loop of ``stitch_panorama``,
+both backends, timed in turns), ``api_surface`` (the compat shifts, the
+capacity audit against ``chain_counts``, the SIFT stage functions on the
+card against the CPU) and ``cli`` (the CLI in a subprocess with step
+files and a profiler trace).  The run's seconds come on a line of their
+own; the line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script then exits non-zero; without CUDA it exits
 non-zero at once.
@@ -102,6 +116,9 @@ PATHS = {
     "probe_desc": ("desc_scratch_dot", "descriptor_histograms"),
     # the Harris stitch runs plain tensor ops only: no kernel may launch
     "harris": (),
+    # find_scale_space_extrema + generate_descriptors on one image
+    "stages": ("localize_newton_resident", "orientation_histograms",
+               "pair_window_gather"),
 }
 KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
 # float operations of the descriptor-histogram kernel per masked sample:
@@ -228,7 +245,7 @@ def path_inputs(folder: str, dev) -> dict:
                            cap=cfg.capacities.max_keypoints,
                            audited=AUDITED["final"])
     emit(dict(phase="chain_counts", images=int(gray.shape[0]), **counts))
-    return dict(cfg=cfg, calls=calls)
+    return dict(cfg=cfg, calls=calls, counts=counts)
 
 
 def newton_iterations(dog, layer, y, x, cv, cfg):
@@ -299,7 +316,7 @@ def check_kernels(inp: dict):
     rows.append(dict(
         name="localize_newton_resident", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
-        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:814",
+        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:863",
         launches=0, max_abs_err=0.0, ms=ms,
         plain_ms=cuda_ms(lambda: K.localize_newton_plain(*k1_args), reps=5),
         bound_ms=b, bound_by=by, library_ms=None,
@@ -347,7 +364,7 @@ def check_kernels(inp: dict):
             name=name, route="cuda",
             source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
             replaces=("vfx_image_stitching_tpu/models/sift/pallas_kernels.py:"
-                      + ("161" if tag == "K2" else "246")),
+                      + ("227" if tag == "K2" else "313")),
             launches=0, max_abs_err=float((got - want).abs().max()),
             load=(K.orientation_load(mag, ang, half, nb) if tag == "K2"
                   else "direct"),
@@ -431,7 +448,7 @@ def check_kernels(inp: dict):
     rows.append(dict(
         name="pair_window_gather", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
-        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:572",
+        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:635",
         launches=0, max_abs_err=0.0,
         load={n: v["load"] for n, v in (*k3.items(), *direct.items())},
         ms=sum(v["ms"] for v in k3.values()),
@@ -564,7 +581,7 @@ def check_descriptor_histograms(calls: dict):
     return dict(
         name="descriptor_histograms", route="cuda",
         source="vfx_image_stitching_tpu_torch/csrc/sift_kernels.cu",
-        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:443",
+        replaces="vfx_image_stitching_tpu/models/sift/pallas_kernels.py:527",
         launches=0, max_abs_err=chk["max_abs_err"],
         ms=chk["ms"],
         plain_ms=cuda_ms(lambda: K.descriptor_histograms_plain(*k5_args), reps=5),
@@ -859,11 +876,11 @@ def probe_desc(calls: dict, dev):
     return row, launches
 
 
-def run_stitch(folder: str, device: str, backend: str = "sift"):
+def run_stitch(folder: str, device: str, backend: str = "sift", **kw):
     from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
 
-    return stitch_panorama(folder, backend=backend, crop_margin=15,
-                           device=device)
+    kw.setdefault("crop_margin", 15)
+    return stitch_panorama(folder, backend=backend, device=device, **kw)
 
 
 def check_result(res, n: int) -> None:
@@ -1073,6 +1090,363 @@ def orient_v1(folder: str, default) -> dict:
     return out
 
 
+def _median(xs) -> float:
+    return float(np.median(xs))
+
+
+def compose_routes(folder: str, reps: int = 3) -> dict:
+    """The chain stitched by both backends, whose compose is the device
+    fold (``compose/blend.py``), with and without the step capture
+    (``return_steps=True``), ``reps`` times each in turns, and the host
+    fold (``compose/host.py``, the tests' reference) on the same
+    cylindrical batch and plan, ``reps`` times.  Checks: equal shifts,
+    pairs, panorama and mosaic bytes across the three; 17 steps, the last
+    equal to the mosaic's crop to its local canvas.  Reports each route's
+    compose time (median and all; the stitch's ``compose`` phase, and
+    plan + fold + content bounds for the host fold, whose pull of the
+    batch is reported apart) and the device fold's device ms and device
+    kernels (``compose_mosaic`` + ``mosaic_with_bounds`` on the chain's
+    plan, profiled).  Returns the device route's results."""
+    import time
+
+    import torch
+
+    from vfx_image_stitching_tpu_torch.compose.blend import compose_mosaic
+    from vfx_image_stitching_tpu_torch.compose.crop import (
+        apply_crop,
+        mosaic_with_bounds,
+    )
+    from vfx_image_stitching_tpu_torch.compose.host import (
+        compose_mosaic_host,
+        content_bounds_host,
+    )
+    from vfx_image_stitching_tpu_torch.compose.plan import plan_compose
+    from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
+        cylindrical_project_batch,
+    )
+    from vfx_image_stitching_tpu_torch.io import load_dataset, stack_dataset
+
+    routes = dict(
+        device=lambda backend: run_stitch(folder, "cuda", backend),
+        steps=lambda backend: run_stitch(folder, "cuda", backend,
+                                         return_steps=True))
+    images, focals, _ = load_dataset(folder)
+    batch, valid = stack_dataset(images)
+    cyl = cylindrical_project_batch(torch.as_tensor(batch).cuda(), focals)
+    out, refs = dict(phase="compose_routes", images=N_IMAGES), {}
+    for backend in ("sift", "harris"):
+        first, compose_s, wall_s = {}, {r: [] for r in routes}, {r: [] for r in routes}
+        for i in range(reps):
+            for r in (routes if i % 2 == 0 else reversed(list(routes))):
+                t0 = time.time()
+                res = routes[r](backend)
+                wall_s[r].append(time.time() - t0)
+                compose_s[r].append(res.timings["compose"])
+                first.setdefault(r, res)
+        ref = refs[backend] = first["device"]
+        check_result(ref, N_IMAGES)
+        pull_s, host_s = [], []
+        for _ in range(reps):
+            t0 = time.time()
+            src = cyl.cpu().numpy()
+            t1 = time.time()
+            plan = plan_compose(IMG_H, IMG_W, N_IMAGES, list(valid),
+                                ref.corrected_shifts, ref.pairs)
+            host = compose_mosaic_host(
+                {i: src[i] for i in range(N_IMAGES) if valid[i]}, plan)
+            bounds = content_bounds_host(host, 0)
+            host_s.append(time.time() - t1)
+            pull_s.append(t1 - t0)
+        compose_s["host"] = host_s
+        same = (first["steps"].shifts == ref.shifts
+                and first["steps"].pairs == ref.pairs
+                and np.array_equal(first["steps"].panorama, ref.panorama)
+                and np.array_equal(first["steps"].mosaic, ref.mosaic)
+                and np.array_equal(host, ref.mosaic)
+                and np.array_equal(apply_crop(host, bounds, 15), ref.panorama))
+        last = plan.steps[-1]
+        captured = first["steps"].steps
+        steps_ok = (len(captured) == N_IMAGES - 1 and np.array_equal(
+            captured[-1], ref.mosaic[
+                last.frame_off_y:last.frame_off_y + last.local_h,
+                last.frame_off_x:last.frame_off_x + last.local_w]))
+        dev_ms, dev_kernels = device_profile(
+            lambda: mosaic_with_bounds(compose_mosaic(cyl, plan), 0), reps=5)
+        out[backend] = dict(
+            equal=same, steps=len(captured), last_step_equal=steps_ok,
+            compose_s_median={r: _median(v) for r, v in compose_s.items()},
+            compose_s=compose_s, host_pull_s_median=_median(pull_s),
+            wall_s_median={r: _median(v) for r, v in wall_s.items()},
+            device_fold_device_ms=dev_ms, device_fold_device_kernels=dev_kernels,
+            mosaic=list(ref.mosaic.shape))
+        if not (same and steps_ok):
+            raise AssertionError(f"compose routes disagree ({backend}): {out[backend]}")
+    emit(out)
+    return refs
+
+
+def stage_api(folder: str, work: str, refs: dict) -> dict:
+    """``compute_pairwise_shifts`` and ``finalize_to_panorama`` on the
+    card against ``stitch_panorama`` (``refs``) for both
+    backends: equal shifts, pairs and bytes; and a stitch with a ``.png``
+    ``save_path`` that reads back equal to its panorama."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
+        cylindrical_project_batch,
+    )
+    from vfx_image_stitching_tpu_torch.io import (
+        load_bgr,
+        load_dataset,
+        stack_dataset,
+    )
+    from vfx_image_stitching_tpu_torch.pipeline.stitch import (
+        compute_pairwise_shifts,
+        dispatch_pair_step,
+        extract_features,
+        finalize_to_panorama,
+    )
+
+    out = dict(phase="stage_api")
+    images, focals, _ = load_dataset(folder)
+    batch, valid = stack_dataset(images)
+    for backend in ("sift", "harris"):
+        ref = refs[backend]
+        cfg = StitchConfig(backend=backend)
+        cyl = cylindrical_project_batch(torch.as_tensor(batch).cuda(), focals)
+        shifts, pairs, _counts = compute_pairwise_shifts(cyl, valid, cfg)
+        xy, descs, valid_kp, meta, stats = extract_features(cyl, cfg)
+        pair_out = dispatch_pair_step(xy, descs, valid_kp, cfg)
+        fin = finalize_to_panorama(cyl, xy, valid_kp, meta, stats, pair_out,
+                                   list(valid), cfg, IMG_H, IMG_W, 15)
+        png = os.path.join(work, f"saved_{backend}.png")
+        saved = run_stitch(folder, "cuda", backend, save_path=png)
+        out[backend] = dict(
+            shifts_equal=shifts == ref.shifts and fin.shifts == ref.shifts,
+            pairs_equal=pairs == ref.pairs and fin.pairs == ref.pairs,
+            bytes_equal=bool(np.array_equal(fin.panorama, ref.panorama)),
+            saved_png_equal=bool(
+                np.array_equal(saved.panorama, ref.panorama)
+                and np.array_equal(load_bgr(png), ref.panorama)))
+        if not all(out[backend].values()):
+            raise AssertionError(f"stage API differs ({backend}): {out[backend]}")
+    emit(out)
+    return out
+
+
+MULTI_SETS = (
+    # BASELINE's multi-panorama run (wind/out/parrington/grail): name,
+    # images, seed; wind's pano.txt has an image with no focal length
+    ("wind", 2, 5), ("out", 2, 13), ("parrington", 18, SEED), ("grail", 18, 11),
+)
+
+
+def multi_folders(work: str, chain: str) -> list:
+    """The four synthetic folders of the ``multi`` phase (parrington is
+    the chain itself, linked)."""
+    folders = []
+    for name, n, seed in MULTI_SETS:
+        folder = os.path.join(work, "multi", name)
+        os.makedirs(folder)
+        if seed == SEED and n == N_IMAGES:
+            for fn in os.listdir(chain):
+                os.link(os.path.join(chain, fn), os.path.join(folder, fn))
+        else:
+            synth_chain(folder, n, IMG_H, IMG_W, seed, FOCAL, **SCENE)
+        if name == "wind":  # drop the first image's focal length
+            pano = os.path.join(folder, "pano.txt")
+            with open(pano) as f:
+                lines = f.read().split("\n")
+            with open(pano, "w") as f:
+                f.write("\n".join([lines[0], lines[2], lines[3]]) + "\n")
+        folders.append(folder)
+    return folders
+
+
+def multi(work: str, chain: str, reps: int = 3) -> dict:
+    """``stitch_many`` over the four folders, SIFT then Harris, against
+    the loop of ``stitch_panorama`` (each folder at its golden margin):
+    equal shifts, pairs and bytes; the SIFT run launches K1-K3 (counted
+    from 0 just before it) and the Harris run no kernel.  The two are
+    timed ``reps`` times each, in turns."""
+    import time
+
+    from vfx_image_stitching_tpu_torch.config import DEFAULT_CROP_MARGINS
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.pipeline.multi import stitch_many
+
+    folders = multi_folders(work, chain)
+    names = [os.path.basename(f) for f in folders]
+    out = dict(phase="multi", folders={n: k for n, k, _s in MULTI_SETS})
+    for backend in ("sift", "harris"):
+        def many():
+            return stitch_many(folders, backend=backend, device="cuda")
+
+        def loop():
+            return {n: run_stitch(f, "cuda", backend,
+                                  crop_margin=DEFAULT_CROP_MARGINS[n])
+                    for n, f in zip(names, folders)}
+
+        walls = dict(stitch_many=[], loop=[])
+        for i in range(reps):
+            for name, fn in ((("stitch_many", many), ("loop", loop)) if i % 2 == 0
+                             else (("loop", loop), ("stitch_many", many))):
+                if i == 0 and name == "stitch_many":
+                    K.reset_launch_counts()
+                t0 = time.time()
+                res = fn()
+                walls[name].append(time.time() - t0)
+                if i == 0 and name == "stitch_many":
+                    got, launches = res, dict(K.LAUNCHES)
+                elif i == 0:
+                    want = res
+        check_launches("stitch" if backend == "sift" else "harris", launches)
+        equal = list(got) == names and all(
+            got[n].shifts == want[n].shifts and got[n].pairs == want[n].pairs
+            and np.array_equal(got[n].panorama, want[n].panorama)
+            for n in names)
+        out[backend] = dict(
+            equal=equal, launches={k: v for k, v in launches.items() if v},
+            wall_s_median={k: _median(v) for k, v in walls.items()},
+            wall_s=walls,
+            panoramas={n: list(got[n].panorama.shape) for n in names},
+            pairs_matched={n: sum(p is not None for p in got[n].pairs)
+                           for n in names})
+        if not equal or got["wind"].shifts != []:
+            raise AssertionError(f"stitch_many differs ({backend}): {out[backend]}")
+    emit(out)
+    return out
+
+
+def api_surface(folder: str, refs: dict, counts: dict) -> dict:
+    """``compat.compute_shift_sift`` / ``compute_shift_harris`` on the
+    chain's cylindrical images 0-1 against the stitch's first shift;
+    ``audit_sift_capacities`` over the chain against the ``chain_counts``
+    maxima; ``find_scale_space_extrema`` + ``generate_descriptors`` on
+    image 0 (launches counted from 0; K1-K3 and no other) against the
+    same stages on the CPU."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch import compat
+    from vfx_image_stitching_tpu_torch.config import SiftConfig
+    from vfx_image_stitching_tpu_torch.io import load_dataset
+    from vfx_image_stitching_tpu_torch.models import sift as S
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_u8_np
+    from vfx_image_stitching_tpu_torch.utils.capacity import (
+        audit_sift_capacities,
+    )
+
+    images, focals, _ = load_dataset(folder)
+    cyl = [compat.cylindrical_projection(im, f, device="cuda")
+           for im, f in zip(images, focals)]
+    out = dict(phase="api_surface")
+    for backend, fn in (("sift", compat.compute_shift_sift),
+                        ("harris", compat.compute_shift_harris)):
+        move, pair = fn(cyl[0], cyl[1], device="cuda")
+        out[f"compute_shift_{backend}"] = dict(
+            move=move, stitch_shift=refs[backend].shifts[0],
+            equal=tuple(move) == refs[backend].shifts[0]
+            and tuple(map(tuple, pair)) == refs[backend].pairs[0])
+
+    audit = audit_sift_capacities(cyl, device="cuda")
+    out["audit"] = {
+        stage: dict(max=audit[f"{stage}_counts"].tolist(),
+                    caps=audit[f"{stage}_caps"].tolist(),
+                    equal=audit[f"{stage}_counts"].tolist() == counts[stage]["max"])
+        for stage in ("cand", "loc", "oriented", "desc_big")}
+    out["audit"]["final"] = dict(max=int(audit["final_counts"].max()),
+                                 equal=int(audit["final_counts"].max())
+                                 == counts["final"]["max"])
+
+    cfg = SiftConfig()
+    gray = bgr_to_gray_u8_np(cyl[0]).astype(np.float32)
+
+    def stages(dev):
+        base = S.generate_base_image(torch.as_tensor(gray, device=dev),
+                                     cfg.sigma, cfg.assumed_blur)
+        pyr = S.generate_gaussian_images(
+            base, S.compute_number_of_octaves(base.shape),
+            S.generate_gaussian_kernels(cfg.sigma, cfg.num_intervals))
+        kps = S.find_scale_space_extrema(pyr, S.generate_DoG_images(pyr), cfg=cfg)
+        kps = S.convert_keypoints_to_input_image_size(kps)
+        desc = S.generate_descriptors(kps, pyr, cfg=cfg)
+        return S.Keypoints(*[f.cpu() for f in kps]), desc.cpu()
+
+    K.reset_launch_counts()
+    kps_g, desc_g = stages("cuda")
+    launches = dict(K.LAUNCHES)
+    check_launches("stages", launches)
+    kps_c, desc_c = stages("cpu")
+    v = kps_c.valid
+    d = (desc_g[v] - desc_c[v]).abs()
+    out["stages"] = dict(
+        launches={k: n for k, n in launches.items() if n},
+        keypoints=int(v.sum()),
+        ints_equal=all(torch.equal(getattr(kps_g, f)[v], getattr(kps_c, f)[v])
+                       for f in ("x", "y", "octave")) and torch.equal(kps_g.valid, v),
+        max_rel={f: float(((getattr(kps_g, f) - getattr(kps_c, f))[v].abs()
+                           / getattr(kps_c, f)[v].abs().clamp_min(1e-6)).max())
+                 for f in ("size", "angle", "response")},
+        desc_max_lsb=float(d.max()), desc_lsb_share=float((d > 0).float().mean()))
+    emit(out)
+    st = out["stages"]
+    # size and response come from K1, bit-exact against the plain walk;
+    # the angle from K2's histograms, held to the orientation contract
+    # (rtol 2e-5); descriptors to the descriptor contract (1 LSB on
+    # under 2% of entries)
+    ok = (all(out[f"compute_shift_{b}"]["equal"] for b in ("sift", "harris"))
+          and all(v["equal"] for v in out["audit"].values())
+          and st["ints_equal"] and st["max_rel"]["size"] <= 1e-5
+          and st["max_rel"]["response"] <= 1e-5 and st["max_rel"]["angle"] <= 2e-5
+          and st["desc_max_lsb"] <= 1.0 and st["desc_lsb_share"] < 0.02)
+    if not ok:
+        raise AssertionError("api_surface: a check failed")
+    return out
+
+
+def cli(folder: str, work: str, ref) -> dict:
+    """The CLI in a subprocess on the chain (``--backend sift --out
+    <dir>/pano.png --save-steps --profile-dir <dir>/trace``, on the
+    card): exit 0, the panorama equal to ``stitch_panorama``'s (``ref``),
+    17 step files, a trace written."""
+    import subprocess
+    import sys
+    import time
+
+    from vfx_image_stitching_tpu_torch.io import load_bgr
+
+    out_dir = os.path.join(work, "cli")
+    os.makedirs(out_dir)
+    png = os.path.join(out_dir, "pano.png")
+    trace = os.path.join(out_dir, "trace")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vfx_image_stitching_tpu_torch.pipeline.cli",
+         folder, "--backend", "sift", "--out", png, "--save-steps",
+         "--profile-dir", trace],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    wall = time.time() - t0
+    step_files = sorted(f for f in os.listdir(out_dir)
+                        if f.startswith("pano") and f.endswith(".jpg"))
+    traces = os.listdir(trace) if os.path.isdir(trace) else []
+    out = dict(phase="cli", rc=proc.returncode, seconds=wall,
+               steps=len(step_files), traces=len(traces),
+               trace_mb=sum(os.path.getsize(os.path.join(trace, t))
+                            for t in traces) / 2**20,
+               panorama_equal=proc.returncode == 0 and os.path.exists(png)
+               and bool(np.array_equal(load_bgr(png), ref.panorama)),
+               stderr_tail=proc.stderr[-400:])
+    emit(out)
+    if not (proc.returncode == 0 and out["panorama_equal"]
+            and out["steps"] == N_IMAGES - 1 and out["traces"] >= 1
+            and out["trace_mb"] > 0):
+        raise AssertionError(f"cli: {out}")
+    return out
+
+
 def main() -> int:
     import sys
 
@@ -1122,6 +1496,7 @@ def main() -> int:
               ptxas=[ln for ln in K.BUILD_LOG.splitlines() if "Used" in ln]))
 
     dev = torch.device("cuda")
+    t_start = time.time()
     with tempfile.TemporaryDirectory() as work:
         folder = os.path.join(work, "chain18")
         os.makedirs(folder)
@@ -1136,6 +1511,11 @@ def main() -> int:
         rows += [p1_row, *p_rows]
         e2e = end_to_end(work, folder)
         harris = harris_stitch(folder, smi)
+        refs = compose_routes(folder)
+        stage_api(folder, work, refs)
+        multi(work, folder)
+        api_surface(folder, refs, inp["counts"])
+        cli(folder, work, refs["sift"])
     by_path = dict(stitch=e2e["launches"], orient_v1=e2e["orient_v1"]["launches"],
                    harris=harris["launches"],
                    descriptor_histogram=k5_launches,
@@ -1143,6 +1523,7 @@ def main() -> int:
     for row in rows:
         row["launches"] = by_path[KERNEL_PATH[row["name"]]][row["name"]]
         row.pop("shape")
+    emit(dict(phase="total", seconds=time.time() - t_start))
     print(smi)
     emit(dict(kernels=rows))
     emit({"ok": True, "device": {"platform": "gpu",

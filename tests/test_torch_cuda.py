@@ -18,7 +18,12 @@ device kernel per call; the tensor-core
 descriptor histogram within 2e-3 (TF32) and 1e-5 (3xTF32) of its plain
 version's maximum.  The Harris backend (plain tensor ops) on the card
 against the CPU: keypoints equal, descriptors within 1e-5, a chain's
-shifts, pairs and panorama bytes equal.
+shifts, pairs and panorama bytes equal.  The device compose (plain
+tensor ops) on the card byte-equal to the host fold, steps and crop
+bounds included; both compose routes, the step capture and the stage
+API equal to the CPU's stitch for both backends; ``stitch_many`` equal to
+the loop of ``stitch_panorama``, with the SIFT kernels launched from its
+staging thread.
 """
 
 import numpy as np
@@ -625,3 +630,115 @@ def test_harris_stitch_on_cuda_matches_cpu(dev, tmp_path):
     assert gpu.shifts == cpu.shifts and gpu.pairs == cpu.pairs
     assert np.array_equal(gpu.panorama, cpu.panorama)
     assert again.shifts == gpu.shifts and np.array_equal(again.panorama, gpu.panorama)
+
+
+# ---------------------------------------------------------------------------
+# device compose, the stage split, stitch_many (plain tensor ops)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", range(3))
+def test_device_compose_on_cuda_matches_host_fold(dev, seed):
+    """``compose_mosaic`` on the card against the host fold, steps
+    included, on random chains whose alpha denominators are not integers
+    (float64 division on the card), and the device crop bounds against
+    the host's."""
+    from vfx_image_stitching_tpu_torch.compose.blend import compose_mosaic
+    from vfx_image_stitching_tpu_torch.compose.crop import crop_bounds
+    from vfx_image_stitching_tpu_torch.compose.host import (
+        compose_mosaic_host,
+        content_bounds_host,
+    )
+    from vfx_image_stitching_tpu_torch.compose.plan import plan_compose
+
+    rng = np.random.default_rng(seed)
+    n, h, w = 5, 60, 80
+    images = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    images[:, :, :3] = 0
+    shifts, pairs = [], []
+    for i in range(n - 1):
+        dx = int(rng.integers(16, 56)) * (1 if (seed + i) % 2 == 0 else -1)
+        dy = float(rng.integers(-5, 6)) + float(rng.random())
+        xa = float(rng.integers(8, w - 8)) + 0.37
+        ya = int(rng.integers(4, h - 4))
+        shifts.append((float(dx), dy))
+        pairs.append(((xa, ya), (xa - dx, ya - int(dy))))
+    plan = plan_compose(h, w, n, [True] * n, shifts, pairs)
+    mosaic, steps = compose_mosaic(torch.as_tensor(images, device=dev), plan,
+                                   return_steps=True)
+    host = compose_mosaic_host(list(images), plan)
+    assert np.array_equal(mosaic.cpu().numpy(), host)
+    cpu_mosaic, cpu_steps = compose_mosaic(torch.as_tensor(images), plan,
+                                           return_steps=True)
+    assert all(np.array_equal(a, b) for a, b in zip(steps, cpu_steps))
+    assert crop_bounds(mosaic, 0) == content_bounds_host(host, 0)
+
+
+@pytest.mark.parametrize("backend", ["harris", "sift"])
+def test_compose_routes_and_stage_api_on_cuda(dev, backend, tmp_path):
+    """On the card: the stitch's device fold, with and without the step
+    capture, gives the host fold's bytes (``compose/host.py`` on the same
+    plan), the stage split equals ``stitch_panorama``, and all equal the
+    CPU's stitch."""
+    from vfx_image_stitching_tpu_torch.compose.host import compose_mosaic_host
+    from vfx_image_stitching_tpu_torch.compose.plan import plan_compose
+    from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
+        cylindrical_project_batch,
+    )
+    from vfx_image_stitching_tpu_torch.io import load_dataset, stack_dataset
+    from vfx_image_stitching_tpu_torch.pipeline import (
+        compute_pairwise_shifts,
+        stitch_panorama,
+    )
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
+
+    synth_chain(str(tmp_path), 4, 128, 168, seed=11, focal=300.0)
+
+    def run(**kw):
+        return stitch_panorama(str(tmp_path), backend=backend, crop_margin=8,
+                               **kw)
+
+    host = run(device="cuda")
+    cpu = run(device="cpu")
+    steps = run(device="cuda", return_steps=True)
+    for res in (cpu, steps):
+        assert res.shifts == host.shifts and res.pairs == host.pairs
+        assert np.array_equal(res.panorama, host.panorama)
+        assert np.array_equal(res.mosaic, host.mosaic)
+    assert len(steps.steps) == 3 and np.array_equal(steps.steps[-1], steps.mosaic)
+    images, focals, _ = load_dataset(str(tmp_path))
+    batch, valid = stack_dataset(images)
+    cyl = cylindrical_project_batch(torch.as_tensor(batch, device=dev), focals)
+    plan = plan_compose(128, 168, 4, list(valid), host.corrected_shifts,
+                        host.pairs)
+    assert np.array_equal(compose_mosaic_host(list(cyl.cpu().numpy()), plan),
+                          host.mosaic)
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+
+    shifts, pairs, _ = compute_pairwise_shifts(cyl, valid,
+                                               StitchConfig(backend=backend))
+    assert shifts == host.shifts and pairs == host.pairs
+
+
+def test_stitch_many_on_cuda_matches_loop(dev, tmp_path):
+    """``stitch_many`` on the card (SIFT: the kernels launch) against the
+    loop of ``stitch_panorama``."""
+    import os
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.pipeline import stitch_many, stitch_panorama
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
+
+    folders = []
+    for name, seed in (("a", 4), ("b", 9)):
+        folders.append(str(tmp_path / name))
+        os.makedirs(folders[-1])
+        synth_chain(folders[-1], 3, 96, 128, seed=seed, focal=300.0)
+    K.reset_launch_counts()
+    res = stitch_many(folders)
+    assert all(K.LAUNCHES[k] > 0 for k in ("localize_newton_resident",
+                                           "orientation_histograms",
+                                           "pair_window_gather"))
+    for folder, got in zip(folders, res.values()):
+        want = stitch_panorama(folder, backend="sift", crop_margin=15)
+        assert got.shifts == want.shifts and got.pairs == want.pairs
+        assert np.array_equal(got.panorama, want.panorama)

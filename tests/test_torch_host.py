@@ -91,12 +91,13 @@ def test_config_copy_and_config_from_dict():
     ("sift", "localize_resident", True, True),
     ("capacities", "desc_pallas_gather", True, True),
     ("capacities", "desc_bf16", True, False),
-    ("top", "save_steps", True, False),
-    ("top", "profile_dir", "trace", False),
+    ("top", "save_steps", True, True),
+    ("top", "profile_dir", "trace", True),
 ])
 def test_config_from_dict_jax_only_settings(where, field, value, accepted):
     """A JAX switch between TPU variants of a stage is dropped; a setting
-    that changes the result or asks for an output the port lacks raises."""
+    that changes the result raises; the step mosaics and the profiler
+    trace, which the port supports, are carried across."""
     from vfx_image_stitching_tpu import config as jc
     from vfx_image_stitching_tpu_torch import config as tc
 
@@ -111,7 +112,10 @@ def test_config_from_dict_jax_only_settings(where, field, value, accepted):
         jcfg = dataclasses.replace(
             jcfg, sift=dataclasses.replace(jcfg.sift, capacities=caps))
     if accepted:
-        assert tc.config_from_dict(dataclasses.asdict(jcfg)) == tc.StitchConfig()
+        want = tc.StitchConfig()
+        if where == "top":
+            want = dataclasses.replace(want, **{field: value})
+        assert tc.config_from_dict(dataclasses.asdict(jcfg)) == want
     else:
         with pytest.raises(ValueError, match=field):
             tc.config_from_dict(dataclasses.asdict(jcfg))

@@ -2,13 +2,23 @@
 
 Beside the JAX package ``vfx_image_stitching_tpu`` (the reference), this
 package runs the same Harris (the default) and SIFT stitches on an NVIDIA
-GPU: dense stages are plain PyTorch on tensors, and the three SIFT stages
-the JAX package wrote as Pallas
-TPU kernels (Newton localization, orientation histograms, descriptor
-window gather) are CUDA C++ kernels in ``csrc/`` built with ``nvcc`` at
-first use.  On CPU tensors every kernel wrapper runs its plain PyTorch
-version instead, which is what the CPU tests compare against the JAX
-package.
+GPU: dense stages are plain PyTorch on tensors, and each of the nine
+Pallas TPU kernels of the repository has a CUDA C++ counterpart in
+``csrc/`` built with ``nvcc`` at first use: the SIFT stitch's Newton
+localization, orientation histograms and descriptor window gather (K1-K3),
+the off-path v1 orientation and descriptor-histogram kernels (K4, K5), and
+the probe kernels P1-P4 (``probes/``).  On CPU tensors every kernel
+wrapper runs its plain PyTorch version instead, which is what the CPU
+tests compare against the JAX package.
+
+Entry points: ``pipeline.stitch_panorama`` and the stage API
+(``compute_pairwise_shifts``, ``finalize_to_panorama``) with host or
+device compose, save and profile; ``pipeline.stitch_many``;
+``compat`` (the reference's function surface); ``models.sift`` (the
+``sift_impl`` stage names); ``utils.capacity.audit_sift_capacities``;
+the CLI ``python -m vfx_image_stitching_tpu_torch.pipeline.cli``.  Each
+runs on ``device="cuda"`` unless the caller asks for the CPU, and raises
+without CUDA rather than falling back.
 
 Modules sit at the same relative paths as their JAX counterparts.  The
 package imports neither ``jax`` nor anything of ``vfx_image_stitching_tpu``;

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,6 +268,9 @@ class StitchConfig:
     sift: SiftConfig = SiftConfig()
     crop_margin: int = 15                # rectangle_crop extra_margin default
     black_threshold: int = 0             # rectangle_crop threshold
+    save_steps: bool = False             # dump per-step mosaics (the
+    #                                      reference's pano_step_* images)
+    profile_dir: Optional[str] = None    # torch.profiler trace output
 
     def match(self) -> MatchConfig:
         if self.backend == "harris":
@@ -294,10 +297,9 @@ _VARIANT_SWITCHES = frozenset({
     "use_pallas", "localize_split", "localize_slim", "localize_resident",
     "desc_lane_align", "desc_pallas_gather",
 })
-# JAX-package settings that change the result (bf16 descriptor operands)
-# or ask for an output the port does not produce (step mosaics, a
-# jax.profiler trace): accepted only at their defaults.
-_UNSUPPORTED = {"desc_bf16": False, "save_steps": False, "profile_dir": None}
+# JAX-package settings that change the result (bf16 descriptor operands,
+# a refuted TPU variant): accepted only at their defaults.
+_UNSUPPORTED = {"desc_bf16": False}
 
 
 def config_from_dict(d: dict) -> StitchConfig:

@@ -130,6 +130,28 @@ def load_bgr(path: str) -> np.ndarray:
     return rgb[..., ::-1].copy()
 
 
+def save_bgr(path: str, img: np.ndarray) -> None:
+    """Write a BGR uint8 image (cv2.imwrite parity), with OpenCV when it
+    is importable, else with PIL.  Raises ``OSError`` when the write
+    fails (``cv2.imwrite`` only returns False, e.g. in a read-only
+    directory, which a caller could not tell from success)."""
+    img = np.asarray(img, dtype=np.uint8)
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        if not cv2.imwrite(path, img):
+            raise OSError(f"could not write image: {path}")
+        return
+    from PIL import Image
+
+    try:
+        Image.fromarray(img[..., ::-1]).save(path, quality=95)
+    except ValueError as exc:  # PIL: no writer for the file's extension
+        raise OSError(f"could not write image: {path}") from exc
+
+
 def peek_image_size(folder: str, pano_file: Optional[str] = None
                     ) -> Optional[Tuple[int, int]]:
     """(height, width) of the dataset's first readable image, from the

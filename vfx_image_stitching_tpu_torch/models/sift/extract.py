@@ -1,4 +1,5 @@
-"""SIFT orchestrator: the full per-image extraction and its batch loop.
+"""SIFT orchestrator: the full per-image extraction, its batch loops and
+the reference-signature entry point.
 
 Stage order matches ``sift_impl.compute_keypoints_and_descriptors``
 (sift_impl.py:15-39); conversion-to-input-size and descriptors run *per
@@ -13,8 +14,10 @@ kernel runs its plain PyTorch version.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from vfx_image_stitching_tpu_torch.config import SiftConfig
@@ -147,6 +150,23 @@ def sift_keypoints_and_descriptors(
     return kps, desc, stats
 
 
+def sift_extract(
+    image: torch.Tensor, cfg: SiftConfig = SiftConfig()
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pipeline interface: (xy (K,2) f32, descriptors (K,128), valid)."""
+    kps, desc, _ = sift_keypoints_and_descriptors(image, cfg)
+    return torch.stack([kps.x, kps.y], dim=-1), desc, kps.valid
+
+
+def sift_batch(
+    batch: torch.Tensor, cfg: SiftConfig = SiftConfig()
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`sift_extract` over an (N, H, W[, 3]) batch, one image at a
+    time (the JAX package's ``lax.map`` mode), stacked."""
+    outs = [sift_extract(im, cfg) for im in batch]
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
+
+
 def sift_batch_with_stats(
     batch: torch.Tensor, cfg: SiftConfig = SiftConfig()
 ) -> Tuple[
@@ -177,3 +197,57 @@ def sift_batch_with_stats(
         for i in (3, 4)
     )
     return xy, desc, valid, meta, stats
+
+
+@dataclasses.dataclass
+class KeyPointRecord:
+    """cv2.KeyPoint-compatible record for the API-parity surface."""
+
+    pt: Tuple[float, float]
+    size: float
+    angle: float
+    response: float
+    octave: int
+    class_id: int = -1
+
+
+def compute_keypoints_and_descriptors(
+    image: np.ndarray,
+    sigma: float = 1.6,
+    num_intervals: int = 3,
+    assumed_blur: float = 0.5,
+    image_border_width: int = 5,
+    *,
+    device="cuda",
+) -> Tuple[List[KeyPointRecord], np.ndarray]:
+    """Reference-signature entry point (sift_impl.py:15-39 parity), run
+    on ``device`` (the card unless the caller asks for the CPU).
+
+    Accepts a BGR uint8 or grayscale image; returns keypoint records
+    (cv2.KeyPoint-compatible fields) and an (N, 128) float32 descriptor
+    array, trimmed to the valid count.
+    """
+    from vfx_image_stitching_tpu_torch.pipeline.stitch import resolve_device
+
+    cfg = SiftConfig(
+        sigma=sigma,
+        num_intervals=num_intervals,
+        assumed_blur=assumed_blur,
+        image_border_width=image_border_width,
+    )
+    img = torch.as_tensor(np.asarray(image)).to(resolve_device(device))
+    kps, desc, _ = sift_keypoints_and_descriptors(img, cfg)
+    kps = Keypoints(*[f.cpu().numpy() for f in kps])
+    desc = desc.cpu().numpy()
+    valid = kps.valid
+    records = [
+        KeyPointRecord(
+            pt=(float(kps.x[i]), float(kps.y[i])),
+            size=float(kps.size[i]),
+            angle=float(kps.angle[i]),
+            response=float(kps.response[i]),
+            octave=int(kps.octave[i]),
+        )
+        for i in np.nonzero(valid)[0]
+    ]
+    return records, desc[valid]

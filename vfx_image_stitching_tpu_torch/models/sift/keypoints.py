@@ -109,6 +109,13 @@ def sort_and_dedup(
     return out._replace(valid=keep[comp_order]), desc_s[comp_order]
 
 
+def remove_duplicate_keypoints(
+    kps: Keypoints, descriptors: torch.Tensor, out_capacity: int | None = None
+) -> Tuple[Keypoints, torch.Tensor]:
+    """Reference-named wrapper over :func:`sort_and_dedup`."""
+    return sort_and_dedup(kps, descriptors, out_capacity or kps.capacity)
+
+
 def _compact_order(valid: torch.Tensor) -> torch.Tensor:
     """Stable permutation putting valid rows first, both sides in order."""
     ar = torch.arange(valid.shape[0], dtype=torch.int32, device=valid.device)

@@ -9,7 +9,12 @@ Pipeline phases mirror the reference's ``run_panorama``
      adjacent pairs                                            [device]
   3. knife-edge escalation of material borderline rows (SIFT)  [host f64]
   4. drift correction                                          [host f64]
-  5. sequential compositing and rectangling crop               [host]
+  5. sequential compositing on the device (compose/blend.py), then the
+     rectangling crop on the host from the device's content bounds
+
+Phases 2 and 3-5 are also the reference's stage API:
+:func:`compute_pairwise_shifts`, and :func:`finalize_to_panorama`, the
+tail every caller shares (this module and ``pipeline/multi.py``).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 without CUDA they raise rather than fall back.  TF32 is turned off for
@@ -28,10 +33,10 @@ import numpy as np
 import torch
 
 from vfx_image_stitching_tpu_torch.config import SiftCapacities, StitchConfig
-from vfx_image_stitching_tpu_torch.compose.crop import apply_crop
-from vfx_image_stitching_tpu_torch.compose.host import (
-    compose_mosaic_host,
-    content_bounds_host,
+from vfx_image_stitching_tpu_torch.compose.blend import compose_mosaic
+from vfx_image_stitching_tpu_torch.compose.crop import (
+    apply_crop,
+    mosaic_with_bounds,
 )
 from vfx_image_stitching_tpu_torch.compose.plan import plan_compose
 from vfx_image_stitching_tpu_torch.estimate.drift import correct_drift
@@ -42,10 +47,15 @@ from vfx_image_stitching_tpu_torch.estimate.ransac import (
 from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
     cylindrical_project_batch,
 )
-from vfx_image_stitching_tpu_torch.io import load_dataset, stack_dataset
+from vfx_image_stitching_tpu_torch.io import (
+    load_dataset,
+    save_bgr,
+    stack_dataset,
+)
 from vfx_image_stitching_tpu_torch.match.nn import match_descriptors
 from vfx_image_stitching_tpu_torch.models.harris import harris_batch
 from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_f32
+from vfx_image_stitching_tpu_torch.utils.profiling import profile_trace
 
 
 @dataclasses.dataclass
@@ -56,6 +66,8 @@ class StitchResult:
     corrected_shifts: List[Tuple[float, float]]
     pairs: List[Optional[Tuple[Tuple[float, float], Tuple[float, float]]]]
     timings: dict
+    # each step's mosaic cropped to its local canvas (return_steps=True)
+    steps: Optional[List[np.ndarray]] = None
     # host capacity stats, present ONLY when a SIFT stage count hit its
     # capacity during this run (keypoints may have been truncated)
     capacity_stats: Optional[dict] = None
@@ -185,15 +197,16 @@ def _lists_from_arrays(
 
 
 def finalize_pairwise_shifts(
-    cyl_host: np.ndarray, xy, valid_kp, meta, stats, pair_out,
+    cyl, xy, valid_kp, meta, stats, pair_out,
     valid: Sequence[bool], cfg: StitchConfig,
     timings_out: Optional[dict] = None,
 ):
     """Pull pair results to the host, warn on capacity hits, escalate
     knife edges.
 
-    ``cyl_host`` is the (N, H, W, 3) uint8 cylindrical batch on the host
-    (the strict escalation rebuilds its pyramids from it).  With
+    ``cyl`` is the (N, H, W, 3) uint8 cylindrical batch, on the host or
+    on a device (the strict escalation rebuilds its pyramids from the two
+    images of each escalated pair, pulled then).  With
     ``timings_out`` the capacity stats of an overflowing run are stored
     under ``capacity_overflow``, and the escalated pairs, their material
     rows and the escalation time under ``esc_n_pairs`` / ``esc_n_rows`` /
@@ -271,8 +284,11 @@ def finalize_pairwise_shifts(
         bswap_np = host(bswap_d)
         material_np = host(material_d)
         for i in esc_rows:
+            pair_imgs = cyl[i:i + 2]
+            if torch.is_tensor(pair_imgs):
+                pair_imgs = pair_imgs.cpu().numpy()
             esc = escalate_pair(
-                cyl_host[i], cyl_host[i + 1],
+                pair_imgs[0], pair_imgs[1],
                 xy_np[i], {k: v[i] for k, v in meta_np.items()},
                 xy_np[i + 1], {k: v[i + 1] for k, v in meta_np.items()},
                 validkp_np[i], bestb_np[i], candidx_np[i], candinm_np[i],
@@ -293,7 +309,7 @@ def finalize_pairwise_shifts(
             timings_out["escalate_s"] = time.time() - t0
 
     shifts, pairs = _lists_from_arrays(
-        shifts_np, pa_np, pb_np, any_np, valid, int(cyl_host.shape[0])
+        shifts_np, pa_np, pb_np, any_np, valid, int(cyl.shape[0])
     )
     return shifts, pairs, counts
 
@@ -339,6 +355,78 @@ def extract_features(cyl: torch.Tensor, cfg: StitchConfig):
     return sift_batch_with_stats(bgr_to_gray_f32(cyl), cfg.sift)
 
 
+def compute_pairwise_shifts(
+    cyl: torch.Tensor, valid: Sequence[bool], cfg: StitchConfig,
+) -> Tuple[List[Tuple[float, float]], List[Optional[tuple]], np.ndarray]:
+    """Batched feature extraction + adjacent-pair shift estimation on the
+    (N, H, W, 3) uint8 cylindrical batch's device.
+
+    Returns (shifts, pairs, match_counts); unreadable images produce the
+    reference's degraded ((0,0), dummy pair) entries
+    (image_stitching_harris.py:479-482).
+    """
+    xy, descs, valid_kp, meta, stats = extract_features(cyl, cfg)
+    pair_out = dispatch_pair_step(xy, descs, valid_kp, cfg)
+    return finalize_pairwise_shifts(
+        cyl, xy, valid_kp, meta, stats, pair_out, list(valid), cfg,
+    )
+
+
+@dataclasses.dataclass
+class _Finalized:
+    """Output of the shared finalize -> compose tail."""
+
+    panorama: np.ndarray
+    mosaic: np.ndarray
+    shifts: List[Tuple[float, float]]
+    corrected: List[Tuple[float, float]]
+    pairs: list
+    counts: np.ndarray
+    steps: Optional[List[np.ndarray]]
+    finalize_s: float
+    compose_s: float
+    crop_s: float
+    detail: dict  # escalation counts and time, capacity overflow stats
+
+
+def finalize_to_panorama(
+    cyl: torch.Tensor, xy, valid_kp, meta, stats, pair_out,
+    valid: Sequence[bool], cfg: StitchConfig, h: int, w: int, margin: int,
+    return_steps: bool = False,
+) -> _Finalized:
+    """Shared pipeline tail: finalize -> drift -> plan -> compose -> crop.
+
+    Used by :func:`stitch_panorama` and ``pipeline.multi.stitch_many``,
+    so escalation, planning and compose semantics cannot drift between
+    them.  ``cyl`` is the (N, H, W, 3) uint8 cylindrical batch on its
+    device.  The fold runs on that device (``compose/blend.py``) and
+    only the mosaic, its content bounds and, with ``return_steps``, the
+    step crops come back.
+    """
+    detail: dict = {}
+    t0 = time.time()
+    shifts, pairs, counts = finalize_pairwise_shifts(
+        cyl, xy, valid_kp, meta, stats, pair_out, list(valid), cfg,
+        timings_out=detail,
+    )
+    t1 = time.time()
+    n = int(cyl.shape[0])
+    corrected = correct_drift(shifts, n_images=n)
+    plan = plan_compose(h, w, n, list(valid), corrected, pairs)
+    out = compose_mosaic(cyl, plan, return_steps=return_steps)
+    mosaic_d, steps = out if return_steps else (out, None)
+    mosaic, bounds = mosaic_with_bounds(mosaic_d, cfg.black_threshold)
+    t2 = time.time()
+    panorama = apply_crop(mosaic, bounds, margin)
+    t3 = time.time()
+    return _Finalized(
+        panorama=panorama, mosaic=mosaic, shifts=shifts,
+        corrected=corrected, pairs=pairs, counts=counts, steps=steps,
+        finalize_s=t1 - t0, compose_s=t2 - t1, crop_s=t3 - t2,
+        detail=detail,
+    )
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -350,6 +438,8 @@ def stitch_panorama(
     pano_file: Optional[str] = None,
     crop_margin: Optional[int] = None,
     cfg: Optional[StitchConfig] = None,
+    save_path: Optional[str] = None,
+    return_steps: bool = False,
     verbose: bool = False,
     device="cuda",
 ) -> StitchResult:
@@ -360,7 +450,10 @@ def stitch_panorama(
     Images are decoded once; when a SIFT stage count reaches its
     framework-owned capacity, the run repeats with capacities grown to fit
     the measured counts (at most three times), reusing the decoded images.
-    ``timings["passes"]`` counts the passes.
+    ``timings["passes"]`` counts the passes.  The panorama is written to
+    ``save_path`` only when one is given; ``return_steps`` fills
+    ``StitchResult.steps``.
+    The whole run is traced into ``cfg.profile_dir`` when that is set.
     """
     dev = resolve_device(device)
     cfg = cfg or StitchConfig(backend=backend)
@@ -370,46 +463,55 @@ def stitch_panorama(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.time()
-    images, focals, _paths = load_dataset(folder, pano_file)
-    if not images:
-        raise ValueError("no valid entries in pano.txt")
-    batch, valid = stack_dataset(images)
-    load_s = time.time() - t0
+    with profile_trace(cfg.profile_dir):
+        t0 = time.time()
+        images, focals, _paths = load_dataset(folder, pano_file)
+        if not images:
+            raise ValueError("no valid entries in pano.txt")
+        batch, valid = stack_dataset(images)
+        load_s = time.time() - t0
 
-    run_cfg, managed = _autoscale_sift_caps(cfg, batch.shape[1:3])
-    res = _stitch_inner(batch, valid, focals, margin, run_cfg, dev, verbose)
-    res.timings["load"] = load_s
-    res.timings["passes"] = 1
-    for passes in range(2, 5):
-        if not managed or res.capacity_stats is None:
-            break
-        grown = run_cfg.sift.capacities.grown_to_fit(res.capacity_stats)
-        if grown is run_cfg.sift.capacities:
-            break
-        warnings.warn(
-            "SIFT capacity overflow: re-running with capacities grown "
-            "to fit the measured counts (set StitchConfig.sift."
-            "capacities explicitly to pin shapes)",
-            RuntimeWarning, stacklevel=2,
-        )
-        run_cfg = dataclasses.replace(
-            run_cfg, sift=dataclasses.replace(run_cfg.sift, capacities=grown)
-        )
+        run_cfg, managed = _autoscale_sift_caps(cfg, batch.shape[1:3])
         res = _stitch_inner(batch, valid, focals, margin, run_cfg, dev,
-                            verbose)
+                            verbose, return_steps)
         res.timings["load"] = load_s
-        res.timings["passes"] = passes
+        res.timings["passes"] = 1
+        for passes in range(2, 5):
+            if not managed or res.capacity_stats is None:
+                break
+            grown = run_cfg.sift.capacities.grown_to_fit(res.capacity_stats)
+            if grown is run_cfg.sift.capacities:
+                break
+            warnings.warn(
+                "SIFT capacity overflow: re-running with capacities grown "
+                "to fit the measured counts (set StitchConfig.sift."
+                "capacities explicitly to pin shapes)",
+                RuntimeWarning, stacklevel=2,
+            )
+            run_cfg = dataclasses.replace(
+                run_cfg,
+                sift=dataclasses.replace(run_cfg.sift, capacities=grown),
+            )
+            res = _stitch_inner(batch, valid, focals, margin, run_cfg, dev,
+                                verbose, return_steps)
+            res.timings["load"] = load_s
+            res.timings["passes"] = passes
+    # save only when the caller gives a path; the reference's
+    # write-into-the-input-folder behavior lives in the CLI
+    if save_path:
+        save_bgr(save_path, res.panorama)
     return res
 
 
 def _stitch_inner(
     batch: np.ndarray, valid: np.ndarray, focals: Sequence[float],
     margin: int, cfg: StitchConfig, dev: torch.device, verbose: bool,
+    return_steps: bool = False,
 ) -> StitchResult:
-    """One pass over decoded images: project, extract, match, finalize,
-    compose, crop.  Phase timings are host-clock seconds with a device
-    synchronize at every phase boundary."""
+    """One pass over decoded images: project, extract, match, then the
+    shared tail (:func:`finalize_to_panorama`).  Phase timings are
+    host-clock seconds with a device synchronize at every phase
+    boundary."""
     timings: dict = {}
     t0 = time.time()
     n, h, w = batch.shape[:3]
@@ -430,42 +532,30 @@ def _stitch_inner(
     t3 = time.time()
     timings["pairs"] = t3 - t2
 
-    cyl_host = cyl.cpu().numpy()
-    detail: dict = {}
-    shifts, pairs, counts = finalize_pairwise_shifts(
-        cyl_host, xy, valid_kp, meta, stats, pair_out, list(valid), cfg,
-        timings_out=detail,
+    fin = finalize_to_panorama(
+        cyl, xy, valid_kp, meta, stats, pair_out, list(valid), cfg, h, w,
+        margin, return_steps=return_steps,
     )
-    t4 = time.time()
-    timings["finalize"] = t4 - t3
+    timings["finalize"] = fin.finalize_s
     if verbose:
-        print(f"Timer: {t4 - t0:.2f} s features + RANSAC "
-              f"(matches per pair: {list(map(int, counts))})")
-
-    corrected = correct_drift(shifts, n_images=n)
-    plan = plan_compose(h, w, n, list(valid), corrected, pairs)
-    mosaic = compose_mosaic_host(
-        {i: cyl_host[i] for i in range(n) if valid[i]}, plan
-    )
-    bounds = content_bounds_host(mosaic, cfg.black_threshold)
-    t5 = time.time()
-    timings["compose"] = t5 - t4
-    panorama = apply_crop(mosaic, bounds, margin)
-    t6 = time.time()
-    timings["crop"] = t6 - t5
-    timings["total"] = t6 - t0
-    timings["esc_n_pairs"] = detail.get("esc_n_pairs", 0)
-    timings["esc_n_rows"] = detail.get("esc_n_rows", 0)
-    if "escalate_s" in detail:
-        timings["escalate"] = detail["escalate_s"]
+        print(f"Timer: {t3 - t0 + fin.finalize_s:.2f} s features + RANSAC "
+              f"(matches per pair: {list(map(int, fin.counts))})")
+    timings["compose"] = fin.compose_s
+    timings["crop"] = fin.crop_s
+    timings["total"] = time.time() - t0
+    timings["esc_n_pairs"] = fin.detail.get("esc_n_pairs", 0)
+    timings["esc_n_rows"] = fin.detail.get("esc_n_rows", 0)
+    if "escalate_s" in fin.detail:
+        timings["escalate"] = fin.detail["escalate_s"]
     if verbose:
-        print(f"Total: {t6 - t0:.2f} s")
+        print(f"Total: {timings['total']:.2f} s")
     return StitchResult(
-        panorama=panorama,
-        mosaic=mosaic,
-        shifts=shifts,
-        corrected_shifts=corrected,
-        pairs=pairs,
+        panorama=fin.panorama,
+        mosaic=fin.mosaic,
+        shifts=fin.shifts,
+        corrected_shifts=fin.corrected,
+        pairs=fin.pairs,
         timings=timings,
-        capacity_stats=detail.get("capacity_overflow"),
+        steps=fin.steps,
+        capacity_stats=fin.detail.get("capacity_overflow"),
     )

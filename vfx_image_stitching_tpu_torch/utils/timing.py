@@ -4,7 +4,7 @@ from __future__ import annotations
 
 
 def kernel_profile(fn, reps: int = 20, warmup: int = 3,
-                   attempts: int = 3) -> dict:
+                   attempts: int = 6) -> dict:
     """``{device kernel name: (launches, device us)}`` over ``reps`` calls
     of ``fn``, from ``torch.profiler``.  (CUDA events around a call would
     also count the wrapper's host work, which at these sizes is longer
@@ -30,7 +30,7 @@ def kernel_profile(fn, reps: int = 20, warmup: int = 3,
     raise RuntimeError("the profiler recorded no device time")
 
 
-def device_profile(fn, reps: int = 20, warmup: int = 3, attempts: int = 3):
+def device_profile(fn, reps: int = 20, warmup: int = 3, attempts: int = 6):
     """Device time (ms) and device kernels of one call of ``fn``: the
     CUDA kernels it launches, summed over :func:`kernel_profile`."""
     events = kernel_profile(fn, reps, warmup, attempts).values()
