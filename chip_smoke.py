@@ -48,8 +48,17 @@ the device fold's device time and kernels), ``stage_api``
 wind/out/parrington/grail run against the loop of ``stitch_panorama``,
 both backends, timed in turns), ``api_surface`` (the compat shifts, the
 capacity audit against ``chain_counts``, the SIFT stage functions on the
-card against the CPU) and ``cli`` (the CLI in a subprocess with step
-files and a profiler trace).  The run's seconds come on a line of their
+card against the CPU) and ``cli`` (the CLI in a subprocess on the
+chain's first 4 images, with step files and a profiler trace).  Then the last modules of the port:
+``mesh`` (``stitch_many`` over the ``multi`` folders on a pano mesh of
+the visible cards and on a (2, 2) mesh of four logical slots of
+``cuda:0``, equal to ``multi``'s unsharded run, and
+``sharded_pairwise_shifts`` on 3 logical slots equal to the unsharded
+step on every leaf), ``viz`` (both headless renderers on the chain's
+first two images, their panel inputs against a CPU run) and
+``probe_fused`` (the localize probe's ``fused`` phase: plain against
+resident localization on every octave of a 6-image group, ms per image
+per mode).  The run's seconds come on a line of their
 own; the line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script then exits non-zero; without CUDA it exits
@@ -119,6 +128,14 @@ PATHS = {
     # find_scale_space_extrema + generate_descriptors on one image
     "stages": ("localize_newton_resident", "orientation_histograms",
                "pair_window_gather"),
+    # stitch_many and sharded_pairwise_shifts over meshes (parallel/mesh.py)
+    "mesh": ("localize_newton_resident", "orientation_histograms",
+             "pair_window_gather"),
+    # render_sift_report + render_harris_demo (viz/)
+    "viz": ("localize_newton_resident", "orientation_histograms",
+            "pair_window_gather"),
+    # the localize probe's fused phase: only its resident mode has a kernel
+    "probe_fused": ("localize_newton_resident",),
 }
 KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
 # float operations of the descriptor-histogram kernel per masked sample:
@@ -1005,6 +1022,8 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
     if not same:
         raise AssertionError("CUDA and CPU runs of the first 4 images differ")
     out["orient_v1"] = orient_v1(sub, gpu)
+    # the CLI phase runs on these four images against this stitch
+    out["chain4"] = (sub, gpu)
     return out
 
 
@@ -1264,12 +1283,13 @@ def multi_folders(work: str, chain: str) -> list:
     return folders
 
 
-def multi(work: str, chain: str, reps: int = 3) -> dict:
+def multi(work: str, chain: str, reps: int = 2) -> dict:
     """``stitch_many`` over the four folders, SIFT then Harris, against
     the loop of ``stitch_panorama`` (each folder at its golden margin):
     equal shifts, pairs and bytes; the SIFT run launches K1-K3 (counted
     from 0 just before it) and the Harris run no kernel.  The two are
-    timed ``reps`` times each, in turns."""
+    timed ``reps`` times each, in turns.  Returns the phase's line, the
+    folders and the first SIFT ``stitch_many`` results."""
     import time
 
     from vfx_image_stitching_tpu_torch.config import DEFAULT_CROP_MARGINS
@@ -1315,8 +1335,272 @@ def multi(work: str, chain: str, reps: int = 3) -> dict:
                            for n in names})
         if not equal or got["wind"].shifts != []:
             raise AssertionError(f"stitch_many differs ({backend}): {out[backend]}")
+        if backend == "sift":
+            sift_runs = got
     emit(out)
+    return out, folders, sift_runs
+
+
+def mesh(folder: str, multi_out: dict, folders: list, unsharded: dict) -> dict:
+    """The mesh layer (``parallel/mesh.py``) on the card.  ``stitch_many``
+    with SIFT over the four ``multi`` folders on ``make_mesh_pano()`` (one
+    slot per visible card) and on a (2, 2) mesh of four logical slots of
+    ``cuda:0`` (a stream each), each run with the launch counts at 0: K1-K3
+    and no other kernel launch, shifts, pairs and panorama bytes equal to
+    ``multi``'s unsharded ``stitch_many`` (``unsharded``), walls beside
+    that run's.  Then ``sharded_pairwise_shifts`` over the chain's first
+    17 images on 3 logical slots (6, 6 and 5 images) against the unsharded
+    ``_pairwise_shift_step``: every leaf equal."""
+    import time
+
+    import torch
+
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
+        cylindrical_project_batch,
+    )
+    from vfx_image_stitching_tpu_torch.io import load_dataset, stack_dataset
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.parallel import mesh as M
+    from vfx_image_stitching_tpu_torch.pipeline.multi import stitch_many
+
+    out = dict(phase="mesh", cards=torch.cuda.device_count(),
+               unsharded_wall_s=multi_out["sift"]["wall_s"]["stitch_many"],
+               unsharded_wall_s_median=multi_out["sift"]["wall_s_median"]["stitch_many"])
+    cuda0 = torch.device("cuda", 0)
+    for name, grid in (("pano_cards", M.make_mesh_pano()),
+                       ("logical_2x2", M.make_mesh_2d(devices=[cuda0] * 4))):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.time()
+        res = stitch_many(folders, backend="sift", mesh=grid)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        check_launches("mesh", launches)
+        equal = list(res) == list(unsharded) and all(
+            res[n].shifts == unsharded[n].shifts and res[n].pairs == unsharded[n].pairs
+            and np.array_equal(res[n].panorama, unsharded[n].panorama)
+            for n in unsharded)
+        out[name] = dict(shape=list(grid.devices.shape), wall_s=wall, equal=equal,
+                         launches={k: v for k, v in launches.items() if v},
+                         shift_stage_s={n: r.timings["shift_stage"] for n, r in res.items()})
+        if not equal:
+            raise AssertionError(f"mesh {name}: stitch_many differs from unsharded")
+
+    images, focals, _ = load_dataset(folder)
+    batch, _valid = stack_dataset(images)
+    cyl = cylindrical_project_batch(torch.as_tensor(batch[:17]).cuda(), focals[:17])
+    cfg = StitchConfig(backend="sift")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.time()
+    got = M.sharded_pairwise_shifts(cyl, M.make_mesh(devices=[cuda0] * 3), cfg)
+    torch.cuda.synchronize()
+    sharded_s = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    check_launches("mesh", launches)
+    t0 = time.time()
+    want = M._pairwise_shift_step(cyl, cfg)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    leaves_equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+    out["pairwise_3_slots"] = dict(
+        images=17, shards=[6, 6, 5], leaves_equal=all(leaves_equal),
+        pairs_matched=int(want[3].sum()), sharded_s=sharded_s, unsharded_s=plain_s,
+        launches={k: v for k, v in launches.items() if v})
+    emit(out)
+    if not (all(leaves_equal) and len(leaves_equal) == 15):
+        raise AssertionError(f"sharded_pairwise_shifts differs: {leaves_equal}")
     return out
+
+
+VIZ_PANELS = ("1_base_image.png", "2_gaussian_pyramid.png", "3_dog_pyramid.png",
+              "4_keypoints.png", "5_descriptor.png", "6_matching.png")
+
+
+def pyplot_stand_in() -> dict:
+    """``sys.modules`` entries for a recording stand-in of matplotlib's
+    ``pyplot`` (the card's machine has no matplotlib): each axis counts
+    its drawing calls by name, and ``savefig`` writes the figure's counts
+    as JSON under the panel's file name."""
+    import json
+    import types
+
+    class Axis:
+        def __init__(self):
+            self.calls = {}
+
+        def __getattr__(self, name):
+            if name.startswith("__"):
+                raise AttributeError(name)
+
+            def record(*_args, **_kwargs):
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return record
+
+    class Figure:
+        def __init__(self, axes):
+            self.axes = axes
+
+        def savefig(self, path, **_kwargs):
+            with open(path, "w") as f:
+                json.dump([ax.calls for ax in self.axes], f)
+
+    def subplots(nrows=1, ncols=1, **_kwargs):
+        axes = [Axis() for _ in range(nrows * ncols)]
+        grid = np.empty(len(axes), dtype=object)
+        grid[:] = axes
+        return Figure(axes), axes[0] if len(axes) == 1 else grid.reshape(nrows, ncols)
+
+    plt = types.ModuleType("matplotlib.pyplot")
+    plt.subplots = subplots
+    plt.close = lambda _fig: None
+    mpl = types.ModuleType("matplotlib")
+    mpl.use = lambda _backend: None
+    mpl.pyplot = plt
+    return {"matplotlib": mpl, "matplotlib.pyplot": plt}
+
+
+def viz(folder: str, work: str) -> dict:
+    """The visualizers (``viz/``) on the chain's first two images, on the
+    card: ``render_sift_report`` (with the matching panel) and
+    ``render_harris_demo``, run with the launch counts at 0 (K1-K3 and no
+    other kernel), writing the JAX renderers' six panel files and the
+    demo file (through a recording stand-in of pyplot where matplotlib is
+    absent).  Then the panels' inputs on the card against a
+    ``device="cpu"`` run: ``compute_stages`` of image 0 (base and pyramids
+    bit-equal, keypoint positions and octaves equal, size and response
+    within rtol 1e-5, angles within 2e-5 of a full turn, descriptors 1 LSB
+    on under 2% of entries), image 1's keypoints and descriptors (the
+    matching panel's) to the same contract, and ``harris_match_pair``'s
+    keypoints and matches equal."""
+    import importlib.util
+    import sys
+    import time
+
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.models.sift.extract import (
+        compute_keypoints_and_descriptors,
+    )
+    from vfx_image_stitching_tpu_torch.viz import render_harris_demo, render_sift_report
+    from vfx_image_stitching_tpu_torch.viz.harris_demo import harris_match_pair
+    from vfx_image_stitching_tpu_torch.viz.sift_visualizer import _gray_f32, compute_stages
+    from vfx_image_stitching_tpu_torch.io import load_bgr
+
+    paths = [os.path.join(folder, f"im0{i}.png.ppm") for i in range(2)]
+    out_dir = os.path.join(work, "viz")
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    stand_in = {} if matplotlib else pyplot_stand_in()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.time()
+    # only the stand-in's entries come and go: restoring all of
+    # sys.modules would drop the modules the renderers import meanwhile
+    sys.modules.update(stand_in)
+    try:
+        written = render_sift_report(paths[0], out_dir, match_path=paths[1],
+                                     device="cuda")
+        demo = render_harris_demo(*paths, os.path.join(out_dir, "demo.png"),
+                                  device="cuda")
+    finally:
+        for name in stand_in:
+            del sys.modules[name]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    check_launches("viz", launches)
+    names = sorted(os.path.basename(p) for p in written)
+
+    def compare_records(got, want, dg, dw) -> dict:
+        """Keypoint records and descriptors of the card's run against the
+        CPU's: positions and octaves equal, size and response within rtol
+        1e-5, angles within 2e-5 of a full turn (the angle is 360 minus
+        the histogram peak's position, so its rounding is a fraction of
+        360 degrees, whatever its size), descriptors 1 LSB on under 2% of
+        entries."""
+        out = dict(keypoints=len(got), same_points=[(r.pt, r.octave) for r in got]
+                   == [(r.pt, r.octave) for r in want])
+        if not out["same_points"]:
+            out["close"] = False
+            return out
+        close = True
+        for key, rtol in (("size", 1e-5), ("response", 1e-5), ("angle", 2e-5)):
+            a = np.array([getattr(r, key) for r in got], dtype=np.float64)
+            b = np.array([getattr(r, key) for r in want], dtype=np.float64)
+            if key == "angle":
+                rel = np.abs((a - b + 180.0) % 360.0 - 180.0) / 360.0
+            else:
+                rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
+            worst = int(np.argmax(rel)) if rel.size else 0
+            out[key] = dict(max_rel=float(rel.max()) if rel.size else 0.0,
+                            worst=[float(a[worst]), float(b[worst])] if rel.size else [])
+            close = close and out[key]["max_rel"] <= rtol
+        d = np.abs(dg - dw)
+        out["desc_max_lsb"] = float(d.max()) if d.size else 0.0
+        out["desc_lsb_share"] = float((d > 0).mean()) if d.size else 0.0
+        out["close"] = bool(close and out["desc_max_lsb"] <= 1.0
+                            and out["desc_lsb_share"] < 0.02)
+        return out
+
+    gray = _gray_f32(paths[0])
+    cuda_st = compute_stages(gray, device="cuda")
+    cpu_st = compute_stages(gray, device="cpu")
+    stacks_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+        [cuda_st[0], *cuda_st[1], *cuda_st[2]], [cpu_st[0], *cpu_st[1], *cpu_st[2]]))
+    g1 = _gray_f32(paths[1]).astype(np.uint8)
+    kp1 = [compute_keypoints_and_descriptors(g1, device=d) for d in ("cuda", "cpu")]
+    imgs = [load_bgr(p) for p in paths]
+    harris = [harris_match_pair(*imgs, device=d) for d in ("cuda", "cpu")]
+    res = dict(
+        phase="viz", matplotlib=matplotlib, wall_s=wall,
+        launches={k: v for k, v in launches.items() if v},
+        panels=names, demo=os.path.basename(demo),
+        panels_as_expected=names == sorted(VIZ_PANELS) and all(
+            os.path.getsize(p) > 0 for p in [*written, demo]),
+        keypoints=len(cuda_st[3]), stacks_equal=stacks_equal,
+        image0=compare_records(cuda_st[3], cpu_st[3], cuda_st[4], cpu_st[4]),
+        image1=compare_records(kp1[0][0], kp1[1][0], kp1[0][1], kp1[1][1]),
+        harris_keypoints=[len(harris[0][0]), len(harris[0][1])],
+        harris_matches=len(harris[0][2]), harris_equal=harris[0] == harris[1])
+    emit(res)
+    if not (all(res[k] for k in ("panels_as_expected", "stacks_equal", "harris_equal"))
+            and res["image0"]["close"] and res["image1"]["close"]
+            and res["keypoints"] > 0):
+        raise AssertionError(f"viz: {res}")
+    return res
+
+
+def probe_fused(dev, reps: int = 2, rounds: int = 3) -> dict:
+    """The localize probe's ``fused`` phase (``probes/localize_resident_r4.
+    fused``) on the chain's first 6 images: its three modes once each with
+    the launch counts at 0 (K1 and no other kernel), then ``rounds``
+    interleaved rounds of ``reps`` timed passes, host ms per image, and
+    ``plain`` against ``resident`` on every octave of every image."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import localize_resident_r4 as R
+
+    inputs = R.fused_inputs(dev, group=6)
+    cfg = StitchConfig(backend="sift").sift
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    for mode in R.FUSED_MODES:
+        for gray in inputs[0]:
+            R.fused_prefix(gray, mode, cfg)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_launches("probe_fused", launches)
+    res = R.fused(dev, inputs=inputs, reps=reps, rounds=rounds)
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    emit(dict(res, phase="probe_fused"))
+    if not res["ok"]:
+        raise AssertionError(f"fused: plain and resident differ: {res['plain_vs_resident']}")
+    return res
 
 
 def api_surface(folder: str, refs: dict, counts: dict) -> dict:
@@ -1407,10 +1691,11 @@ def api_surface(folder: str, refs: dict, counts: dict) -> dict:
 
 
 def cli(folder: str, work: str, ref) -> dict:
-    """The CLI in a subprocess on the chain (``--backend sift --out
+    """The CLI in a subprocess on ``folder`` (``--backend sift --out
     <dir>/pano.png --save-steps --profile-dir <dir>/trace``, on the
     card): exit 0, the panorama equal to ``stitch_panorama``'s (``ref``),
-    17 step files, a trace written."""
+    one step file per pair, a trace written.  Run on the chain's first 4
+    images (the 18-image run wrote a 482 MB trace in 45-57 s)."""
     import subprocess
     import sys
     import time
@@ -1441,7 +1726,7 @@ def cli(folder: str, work: str, ref) -> dict:
                stderr_tail=proc.stderr[-400:])
     emit(out)
     if not (proc.returncode == 0 and out["panorama_equal"]
-            and out["steps"] == N_IMAGES - 1 and out["traces"] >= 1
+            and out["steps"] == len(ref.shifts) and out["traces"] >= 1
             and out["trace_mb"] > 0):
         raise AssertionError(f"cli: {out}")
     return out
@@ -1513,9 +1798,13 @@ def main() -> int:
         harris = harris_stitch(folder, smi)
         refs = compose_routes(folder)
         stage_api(folder, work, refs)
-        multi(work, folder)
+        multi_out, folders, sift_many = multi(work, folder)
+        mesh(folder, multi_out, folders, sift_many)
         api_surface(folder, refs, inp["counts"])
-        cli(folder, work, refs["sift"])
+        chain4, chain4_ref = e2e.pop("chain4")
+        cli(chain4, work, chain4_ref)
+        viz(folder, work)
+        probe_fused(dev)
     by_path = dict(stitch=e2e["launches"], orient_v1=e2e["orient_v1"]["launches"],
                    harris=harris["launches"],
                    descriptor_histogram=k5_launches,

@@ -22,8 +22,11 @@ shifts, pairs and panorama bytes equal.  The device compose (plain
 tensor ops) on the card byte-equal to the host fold, steps and crop
 bounds included; both compose routes, the step capture and the stage
 API equal to the CPU's stitch for both backends; ``stitch_many`` equal to
-the loop of ``stitch_panorama``, with the SIFT kernels launched from its
-staging thread.
+the loop of ``stitch_panorama``.  The mesh layer on two logical slots of
+the card equal to the unsharded step and ``stitch_many``; the
+visualizers' ``compute_stages`` and ``harris_match_pair`` on the card
+against the CPU; the localize probe's ``fused`` phase, ``plain`` equal to
+``resident`` with K1 the only kernel launched.
 """
 
 import numpy as np
@@ -742,3 +745,100 @@ def test_stitch_many_on_cuda_matches_loop(dev, tmp_path):
         want = stitch_panorama(folder, backend="sift", crop_margin=15)
         assert got.shifts == want.shifts and got.pairs == want.pairs
         assert np.array_equal(got.panorama, want.panorama)
+
+
+@pytest.mark.parametrize("backend", ["harris", "sift"])
+def test_mesh_on_cuda_matches_unsharded(dev, backend, tmp_path):
+    """Two logical slots of one card (a stream each): the sharded minimal
+    step over 5 images (an uneven split) equals the unsharded step on
+    every leaf, and ``stitch_many`` on a 2-slot pano mesh and on the
+    (1, 2) mesh equals it without a mesh; SIFT launches its kernels."""
+    import os
+
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.parallel import mesh as M
+    from vfx_image_stitching_tpu_torch.pipeline import stitch_many
+    from vfx_image_stitching_tpu_torch.utils.synthetic import make_scene, synth_chain
+
+    scene = make_scene(128, 168 + 4 * 40, 3, block_px=60, block_size=(2, 6))
+    batch = torch.as_tensor(np.stack([scene[:, 40 * i:40 * i + 168]
+                                      for i in range(5)]), device=dev)
+    cfg = StitchConfig(backend=backend)
+    K.reset_launch_counts()
+    got = M.sharded_pairwise_shifts(batch, M.make_mesh(devices=[dev] * 2), cfg)
+    torch.cuda.synchronize()
+    launched = dict(K.LAUNCHES)
+    want = M._pairwise_shift_step(batch, cfg)
+    assert bool(want[3].all())
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(launched[k] > 0 for k in ("localize_newton_resident",
+                                         "orientation_histograms",
+                                         "pair_window_gather")) == (backend == "sift")
+    folders = []
+    for name, n, seed in (("a", 3, 4), ("b", 3, 9), ("c", 2, 5)):
+        folders.append(str(tmp_path / name))
+        os.makedirs(folders[-1])
+        synth_chain(folders[-1], n, 96, 128, seed=seed, focal=300.0)
+    plain = stitch_many(folders, backend=backend)
+    for mesh in (M.make_mesh_pano(devices=[dev] * 2),
+                 M.make_mesh_2d(devices=[dev] * 2)):
+        res = stitch_many(folders, backend=backend, mesh=mesh)
+        for name, want_r in plain.items():
+            assert res[name].shifts == want_r.shifts and res[name].pairs == want_r.pairs
+            assert np.array_equal(res[name].panorama, want_r.panorama)
+
+
+def test_compute_stages_on_cuda_matches_cpu(dev):
+    """``viz.sift_visualizer.compute_stages`` on the card (K1-K3 launch)
+    against the CPU: base image and pyramids bit-equal (plain tensor ops
+    with no contraction), the records' positions and octaves equal, size
+    and response within rtol 1e-5 (the card's ``exp2`` and ``exp``), angles
+    within 2e-5 of a full turn (K2's histograms; an angle is 360 minus the
+    peak's position, so its rounding does not shrink with it),
+    descriptors within 1 LSB on under 2% of entries (``api_surface``'s
+    contract in ``chip_smoke.py``); and Harris's ``harris_match_pair``
+    equal."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.utils.synthetic import make_scene
+    from vfx_image_stitching_tpu_torch.viz.harris_demo import harris_match_pair
+    from vfx_image_stitching_tpu_torch.viz.sift_visualizer import (
+        _gray_f32,
+        compute_stages,
+    )
+
+    scene = make_scene(128, 200, 5, block_px=60, block_size=(2, 6))
+    gray = _gray_f32(scene[:, :168])
+    K.reset_launch_counts()
+    base, pyr, dogs, recs, desc = compute_stages(gray, device=dev)
+    torch.cuda.synchronize()
+    assert {k for k, v in K.LAUNCHES.items() if v} == {
+        "localize_newton_resident", "orientation_histograms", "pair_window_gather"}
+    c_base, c_pyr, c_dogs, c_recs, c_desc = compute_stages(gray, device="cpu")
+    for t, c in zip([base, *pyr, *dogs], [c_base, *c_pyr, *c_dogs]):
+        assert torch.equal(t.cpu(), c)
+    assert len(recs) == len(c_recs) > 10
+    assert [(r.pt, r.octave) for r in recs] == [(r.pt, r.octave) for r in c_recs]
+    for key in ("size", "response"):
+        np.testing.assert_allclose([getattr(r, key) for r in recs],
+                                   [getattr(r, key) for r in c_recs], rtol=1e-5)
+    turn = (np.array([r.angle for r in recs]) - [r.angle for r in c_recs] + 180) % 360 - 180
+    assert np.abs(turn).max() <= 360 * 2e-5
+    d = np.abs(desc - c_desc)
+    assert d.max() <= 1.0 and (d > 0).mean() < 0.02
+    assert harris_match_pair(scene[:, 32:200], scene[:, :168], device=dev) == (
+        harris_match_pair(scene[:, 32:200], scene[:, :168], device="cpu"))
+
+
+def test_fused_probe_on_cuda(dev):
+    """The localize probe's ``fused`` phase on the card: ``plain`` equals
+    ``resident`` on every octave, and of the kernels only K1 launches."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.probes import localize_resident_r4 as R
+
+    K.reset_launch_counts()
+    res = R.fused(dev, chain=dict(n=3, h=128, w=168, seed=4, focal=300.0),
+                  group=2, reps=1, rounds=1)
+    torch.cuda.synchronize()
+    assert res["ok"] and res["plain_vs_resident"]["valid_rows"] > 40
+    assert {k for k, v in K.LAUNCHES.items() if v} == {"localize_newton_resident"}

@@ -1,8 +1,8 @@
 """PyTorch port, ``pipeline/multi.py``: ``stitch_many`` against the loop
 of ``stitch_panorama`` over the same folders (both backends), against the
 JAX package's ``stitch_many`` (Harris, op by op under
-``jax.disable_jit()``), and its ``mesh`` argument, which needs the
-unported ``parallel/mesh.py``.
+``jax.disable_jit()``), and its ``mesh`` argument's type check (the
+sharded runs are in ``tests/test_torch_parallel.py``).
 """
 
 import os
@@ -77,9 +77,10 @@ def test_stitch_many_equals_stitch_panorama_loop(backend, folders):
 
 
 def test_stitch_many_mesh_raises(folders):
+    """A mesh that is not the port's (a JAX mesh, say) raises."""
     from vfx_image_stitching_tpu_torch.pipeline import stitch_many
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="parallel Mesh"):
         stitch_many(folders, mesh=object(), device="cpu")
 
 

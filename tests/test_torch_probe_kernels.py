@@ -346,3 +346,22 @@ def test_newton_on_small_chain_cpu():
     for row in res["per_octave"]:
         assert row["float_lanes_rows_not_exact"] == 0
         assert all(v == 0 for v in row["float_rows_not_exact"].values())
+
+
+def test_fused_on_small_chain_cpu():
+    """The ``fused`` phase on a 2-image group of a 3-image 96x128 chain,
+    on the CPU: ``plain`` and ``resident`` give equal valid masks and
+    equal fields on every valid row of every octave, and the result
+    carries the JAX probe's ``fused_ab`` keys."""
+    from vfx_image_stitching_tpu_torch.probes import localize_resident_r4 as R
+
+    res = R.fused("cpu", chain=dict(n=3, h=96, w=128, seed=4, focal=300.0),
+                  group=2, reps=1, rounds=2)
+    eq = res["plain_vs_resident"]
+    assert res["ok"] and eq["images"] == 2 and eq["valid_rows"] > 40
+    assert eq["octaves"] >= 10 and eq["mask_mismatches"] == eq["field_mismatches"] == 0
+    assert set(res["summary_ms_per_img"]) == set(R.FUSED_MODES)
+    assert all(len(v) == 2 for v in res["rounds_ms_per_img"].values())
+    assert set(res["derived"]) == {"loc_cum_plain", "loc_cum_resident",
+                                   "resident_saving_ms_per_img"}
+    assert res["source"] == "synthetic chain" and res["shape"] == [96, 128]

@@ -12,18 +12,30 @@ wrapper runs its plain PyTorch version instead, which is what the CPU
 tests compare against the JAX package.
 
 Entry points: ``pipeline.stitch_panorama`` and the stage API
-(``compute_pairwise_shifts``, ``finalize_to_panorama``) with host or
-device compose, save and profile; ``pipeline.stitch_many``;
-``compat`` (the reference's function surface); ``models.sift`` (the
-``sift_impl`` stage names); ``utils.capacity.audit_sift_capacities``;
-the CLI ``python -m vfx_image_stitching_tpu_torch.pipeline.cli``.  Each
-runs on ``device="cuda"`` unless the caller asks for the CPU, and raises
-without CUDA rather than falling back.
+(``compute_pairwise_shifts``, ``finalize_to_panorama``), each composing
+on its batch's device, with save and profile; ``pipeline.stitch_many``,
+on one device or sharded over a ``parallel`` mesh of devices (or of
+logical slots on one device); ``compat`` (the reference's function
+surface); ``models.sift`` (the ``sift_impl`` stage names);
+``utils.capacity.audit_sift_capacities``; the headless visualizers of
+``viz``; the CLI ``python -m vfx_image_stitching_tpu_torch.pipeline.cli``.
+Each runs on ``device="cuda"`` unless the caller asks for the CPU, and
+raises without CUDA rather than falling back.
 
-Modules sit at the same relative paths as their JAX counterparts.  The
+Modules sit at the same relative paths as their JAX counterparts, and
+each package re-exports the names of its counterpart's ``__all__``.  The
 package imports neither ``jax`` nor anything of ``vfx_image_stitching_tpu``;
 the numpy-only modules it needs are copies.
 """
+
+from vfx_image_stitching_tpu_torch.config import (
+    HarrisConfig,
+    MatchConfig,
+    SiftCapacities,
+    SiftConfig,
+    StitchConfig,
+)
+from vfx_image_stitching_tpu_torch.io import load_dataset, read_pano_data
 
 __version__ = "0.1.0"
 
@@ -35,3 +47,24 @@ def stitch_panorama(*args, **kwargs):
     )
 
     return fn(*args, **kwargs)
+
+
+def stitch_many(*args, **kwargs):
+    """Lazy re-export of :func:`pipeline.multi.stitch_many`."""
+    from vfx_image_stitching_tpu_torch.pipeline.multi import stitch_many as fn
+
+    return fn(*args, **kwargs)
+
+
+__all__ = [
+    "HarrisConfig",
+    "MatchConfig",
+    "SiftCapacities",
+    "SiftConfig",
+    "StitchConfig",
+    "read_pano_data",
+    "load_dataset",
+    "stitch_panorama",
+    "stitch_many",
+    "__version__",
+]

@@ -1,1 +1,8 @@
-"""match of the PyTorch port (see the package docstring)."""
+"""Descriptor matching."""
+
+from vfx_image_stitching_tpu_torch.match.nn import (
+    match_descriptors,
+    pairwise_sqdist,
+)
+
+__all__ = ["match_descriptors", "pairwise_sqdist"]

@@ -10,8 +10,10 @@ device stages: a staging thread that did so measured no gain on an H100
 (PERF.md), because the SIFT extraction synchronizes once per stage for
 its live-chunk bounds and so little device work can queue ahead.
 
-The JAX package's mesh-sharded path (``parallel/mesh.py``) is not
-ported yet (ROADMAP Queue 1 item 4).
+With ``mesh`` (``parallel.make_mesh_pano`` or ``make_mesh_2d``) the
+shift stage of same-shape datasets runs over the mesh's slots instead
+(``parallel/mesh.py``), and each dataset then takes the same
+``finalize_to_panorama`` tail on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ import torch
 from vfx_image_stitching_tpu_torch.config import (
     DEFAULT_CROP_MARGINS,
     StitchConfig,
+)
+from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
+    cylindrical_project_batch,
 )
 from vfx_image_stitching_tpu_torch.io import (
     load_dataset,
@@ -92,13 +97,11 @@ def stitch_many(
     ``stitch_panorama``, which grows the capacities.  Each result's
     ``timings`` are its pass's, plus ``load_wait`` (seconds spent waiting
     for its decode) and ``cumulative`` (seconds since the call began).
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``; ``device`` is then unused)
+    the datasets run through :func:`_stitch_many_sharded`, with equal
+    shifts, pairs and panoramas.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "stitch_many(mesh=...): the mesh-sharded path needs "
-            "parallel/mesh.py, which is not ported yet (ROADMAP Queue 1 "
-            "item 4)")
-    dev = resolve_device(device)
     cfg = cfg or StitchConfig(backend=backend)
     if cfg.backend != backend:
         cfg = dataclasses.replace(cfg, backend=backend)
@@ -106,6 +109,9 @@ def stitch_many(
     margins = margins or {}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if mesh is not None:
+        return _stitch_many_sharded(folders, mesh, margins, cfg, verbose)
+    dev = resolve_device(device)
     t0 = time.time()
     names = [os.path.basename(os.path.normpath(f)) for f in folders]
 
@@ -131,4 +137,94 @@ def stitch_many(
 
     if verbose:
         print(f"stitched {len(folders)} panoramas in {time.time() - t0:.2f} s")
+    return results
+
+
+def _stitch_many_sharded(
+    folders: Sequence[str], mesh, margins: Dict[str, int],
+    cfg: StitchConfig, verbose: bool,
+) -> Dict[str, StitchResult]:
+    """The multi-device path of :func:`stitch_many`, the counterpart of the
+    JAX package's ``_stitch_many_sharded``.
+
+    Datasets decode in threads and project on the mesh's first device;
+    datasets of one image count and shape form a (P, N, H, W, 3) group,
+    whose full shift stage runs over the mesh
+    (``parallel.mesh.sharded_multi_pano_full``: on a 1-D mesh
+    (``make_mesh_pano``) whole panoramas per slot, on a 2-D
+    (``make_mesh_2d``) each panorama's images over its row; the mesh
+    layer splits P and N over the axes and returns every leaf at its real
+    size).  Then each dataset, in input order, takes the shared
+    ``finalize_to_panorama`` tail on that device; a capacity hit is
+    reported in ``capacity_stats`` and not recovered.  Each result's
+    ``timings``: ``shift_stage`` (its group's sharded stage, seconds),
+    ``finalize``, ``compose``, ``crop``, ``total`` (its own tail) and
+    ``cumulative`` (since the call began).
+    """
+    from vfx_image_stitching_tpu_torch.parallel.mesh import (
+        Mesh,
+        _tree_map,
+        sharded_multi_pano_full,
+    )
+    from vfx_image_stitching_tpu_torch.pipeline.stitch import (
+        finalize_to_panorama,
+    )
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh: expected a vfx_image_stitching_tpu_torch.parallel Mesh, "
+            f"got {type(mesh).__name__}")
+    dev = mesh.devices.flat[0]
+    t0 = time.time()
+    names = [os.path.basename(os.path.normpath(f)) for f in folders]
+    with cf.ThreadPoolExecutor(max_workers=max(1, len(folders))) as pool:
+        loaded = list(pool.map(_load, folders))
+
+    groups: Dict[tuple, list] = {}
+    for k, (batch, _valid, _focals) in enumerate(loaded):
+        groups.setdefault(batch.shape, []).append(k)
+    staged: Dict[int, tuple] = {}
+    for members in groups.values():
+        ts = time.time()
+        cyls = [
+            cylindrical_project_batch(torch.as_tensor(loaded[k][0]).to(dev),
+                                      [float(f) for f in loaded[k][2]])
+            for k in members
+        ]
+        # (xy, valid_kp, meta, stats, pair_out), each with a leading P axis
+        leaves = sharded_multi_pano_full(torch.stack(cyls), mesh, cfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        shift_s = time.time() - ts
+        for q, k in enumerate(members):
+            staged[k] = (cyls[q], _tree_map(lambda v: v[q], leaves), shift_s)
+
+    results: Dict[str, StitchResult] = {}
+    for k, name in enumerate(names):
+        _batch, valid, _focals = loaded[k]
+        cyl, leaves, shift_s = staged[k]
+        h, w = cyl.shape[1:3]
+        margin = margins.get(name, DEFAULT_CROP_MARGINS.get(name, 15))
+        fin = finalize_to_panorama(cyl, *leaves, list(valid), cfg, h, w, margin)
+        results[name] = StitchResult(
+            panorama=fin.panorama,
+            mosaic=fin.mosaic,
+            shifts=fin.shifts,
+            corrected_shifts=fin.corrected,
+            pairs=fin.pairs,
+            timings=dict(
+                shift_stage=shift_s, finalize=fin.finalize_s,
+                compose=fin.compose_s, crop=fin.crop_s,
+                total=fin.finalize_s + fin.compose_s + fin.crop_s,
+                cumulative=time.time() - t0,
+                esc_n_pairs=fin.detail.get("esc_n_pairs", 0),
+                esc_n_rows=fin.detail.get("esc_n_rows", 0)),
+            capacity_stats=fin.detail.get("capacity_overflow"),
+        )
+        if verbose:
+            print(f"{name}: {fin.panorama.shape} (cumulative "
+                  f"{results[name].timings['cumulative']:.2f} s)")
+    if verbose:
+        print(f"stitched {len(folders)} panoramas on {mesh} in "
+              f"{time.time() - t0:.2f} s")
     return results

@@ -3,7 +3,7 @@
 Counterpart of ``scripts/probe_localize_resident_r4.py``.  Run from the
 repository root::
 
-    python -m vfx_image_stitching_tpu_torch.probes.localize_resident_r4 feas1|feas2|newton [--device cpu]
+    python -m vfx_image_stitching_tpu_torch.probes.localize_resident_r4 feas1|feas2|newton|fused [--device cpu]
 
 ``feas1``: the layers' sum of the (8, 128) corner of a (5, 768, 1024)
 stack (P2), bit-exact against its plain version; on the card, the stack's
@@ -14,8 +14,15 @@ bit-exact against the plain version and the probe's own check.
 (``utils.synthetic``) localized by the probe's Newton kernel (P4)
 followed by the stock finalization, against the plain chunked path on
 the valid rows, K1's lanes against the plain walk's and P4's against
-K1's.  On the card each phase also reports device times
-(``utils.timing.cuda_ms``).  JSON lines on stdout; nothing is written.
+K1's.  ``fused``: the extraction prefix (base image through localize)
+of a group of the chain's images (of the reference ``parrington`` set
+when ``VFX_REFERENCE_DIR`` holds it) in three modes, in interleaved
+rounds (``extrema``; ``plain``, the chunked walk; ``resident``, K1),
+host ms per image with the device synchronized around each timing, and
+the plain and resident localized fields equal on every octave.  On the
+card the other phases also report device times
+(``utils.timing.cuda_ms``).
+JSON lines on stdout; nothing is written.
 """
 
 from __future__ import annotations
@@ -159,20 +166,37 @@ def localize_resident_r4(dog: torch.Tensor, layer: torch.Tensor,
     return finalize_lanes(outf, outi, cand_valid, octave, cfg)
 
 
-def chain_image0(n: int, h: int, w: int, seed: int, focal: float, **scene):
-    """Image 0 (BGR uint8) and its focal, read back from an ``n``-image
-    synthetic chain as the probe reads its first photo."""
+def read_images(folder: str, count: int):
+    """The first ``count`` images (BGR uint8) of a dataset folder and their
+    focals, as the probe reads its photos."""
     from vfx_image_stitching_tpu_torch.io import (
         load_bgr,
         read_pano_data,
         resolve_image_path,
     )
+
+    paths, focals = read_pano_data(os.path.join(folder, "pano.txt"))
+    return ([load_bgr(resolve_image_path(p, folder)) for p in paths[:count]],
+            [float(f) for f in focals[:count]])
+
+
+def chain_images(count: int, n: int, h: int, w: int, seed: int,
+                 focal: float, **scene):
+    """The first ``count`` images (BGR uint8) and focals, read back from an
+    ``n``-image synthetic chain."""
     from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
 
     with tempfile.TemporaryDirectory() as folder:
         synth_chain(folder, n, h, w, seed, focal, **scene)
-        paths, focals = read_pano_data(os.path.join(folder, "pano.txt"))
-        return load_bgr(resolve_image_path(paths[0], folder)), float(focals[0])
+        return read_images(folder, count)
+
+
+def chain_image0(**chain):
+    """Image 0 (BGR uint8) and its focal, read back from a synthetic
+    chain (:func:`default_chain`'s keys) as the probe reads its first
+    photo."""
+    imgs, focals = chain_images(1, **chain)
+    return imgs[0], focals[0]
 
 
 def default_chain() -> dict:
@@ -287,11 +311,149 @@ def newton(dev, chain: dict = None, timer=None, inputs=None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# fused
+# ---------------------------------------------------------------------------
+
+FUSED_MODES = ("extrema", "plain", "resident")
+
+
+def fused_inputs(dev, chain: dict = None, group: int = 6):
+    """Gray cylindrical images of the group on ``dev``: an (G, H, W) f32
+    tensor, and where they came from.  The images are the first ``group``
+    of ``chain`` when one is given, else of the reference ``parrington``
+    set when ``VFX_REFERENCE_DIR`` holds it, else of
+    :func:`default_chain`."""
+    from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
+        cylindrical_project_batch,
+    )
+    from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_f32
+
+    ref = os.path.join(os.environ.get("VFX_REFERENCE_DIR", ""), "parrington")
+    if chain is None and os.environ.get("VFX_REFERENCE_DIR") and os.path.isdir(ref):
+        imgs, focals = read_images(ref, group)
+        source = ref
+    else:
+        imgs, focals = chain_images(group, **(chain or default_chain()))
+        source = "synthetic chain"
+    batch = torch.as_tensor(np.stack(imgs)).to(dev)
+    return bgr_to_gray_f32(cylindrical_project_batch(batch, focals)), source
+
+
+def fused_prefix(gray: torch.Tensor, mode: str, cfg: SiftConfig) -> list:
+    """The extraction prefix of one gray image, base image through
+    localize: per octave the candidates (``extrema``) or the localized
+    fields (``plain``: the chunked walk; ``resident``: K1)."""
+    from vfx_image_stitching_tpu_torch.models.sift.extrema import (
+        extract_candidates,
+        extrema_threshold,
+    )
+    from vfx_image_stitching_tpu_torch.models.sift.pyramid import (
+        compute_number_of_octaves,
+        generate_base_image,
+        generate_dog_images,
+        generate_gaussian_images,
+        generate_gaussian_kernels,
+    )
+
+    base = generate_base_image(gray, cfg.sigma, cfg.assumed_blur)
+    pyramid = generate_gaussian_images(
+        base, compute_number_of_octaves(base.shape),
+        generate_gaussian_kernels(cfg.sigma, cfg.num_intervals))
+    thresh = extrema_threshold(cfg.contrast_threshold, cfg.num_intervals)
+    loc_fn = dict(plain=localize_candidates_chunked,
+                  resident=localize_candidates_resident).get(mode)
+    out = []
+    for o, dog in enumerate(generate_dog_images(pyramid)):
+        h_o, w_o = dog.shape[-2:]
+        cap = min(cfg.capacities.scaled_candidates(o), 3 * h_o * w_o)
+        cand = extract_candidates(dog, cfg.image_border_width, thresh, cap)
+        out.append(cand if loc_fn is None else loc_fn(dog, *cand, o, cfg))
+    return out
+
+
+def fused_compare(plain: list, resident: list) -> dict:
+    """``plain`` against ``resident`` (:func:`fused_prefix` of one image):
+    equal valid masks, and every field equal on the valid rows."""
+    out = dict(octaves=len(plain), valid_rows=0, mask_mismatches=0,
+               field_mismatches={})
+    for p, r in zip(plain, resident):
+        v = p.valid
+        out["valid_rows"] += int(v.sum())
+        out["mask_mismatches"] += int((p.valid != r.valid).sum())
+        for name in Localized._fields:
+            bad = int((getattr(p, name)[v] != getattr(r, name)[v]).sum())
+            if bad:
+                out["field_mismatches"][name] = out["field_mismatches"].get(name, 0) + bad
+    return out
+
+
+def fused(dev="cuda", chain: dict = None, group: int = 6, reps: int = 8,
+          rounds: int = 5, inputs=None) -> dict:
+    """The fused-regime A/B of the JAX probe's ``fused`` phase: the
+    extraction prefix (:func:`fused_prefix`) of a ``group`` of images in
+    the three :data:`FUSED_MODES`, in ``rounds`` interleaved rounds of one
+    untimed pass and ``reps`` timed passes each; host ms per image with
+    the device synchronized before and after each timing (the median over
+    rounds in ``summary_ms_per_img``), the localization's share
+    (``derived``), and ``plain`` against ``resident`` on every octave of
+    every image (:func:`fused_compare`).  ``inputs`` is
+    :func:`fused_inputs`' result."""
+    import statistics
+    import time
+
+    from vfx_image_stitching_tpu_torch.pipeline.stitch import resolve_device
+
+    dev = resolve_device(dev)
+    grays, source = inputs or fused_inputs(dev, chain, group)
+    cfg = StitchConfig(backend="sift").sift
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(mode):
+        return [fused_prefix(g, mode, cfg) for g in grays]
+
+    checks = [fused_compare(p, r) for p, r in zip(run("plain"), run("resident"))]
+    rounds_ms = {m: [] for m in FUSED_MODES}
+    for _ in range(rounds):
+        for mode in FUSED_MODES:
+            run(mode)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run(mode)
+            sync()
+            rounds_ms[mode].append(
+                (time.perf_counter() - t0) / reps / len(grays) * 1e3)
+    summary = {m: statistics.median(v) for m, v in rounds_ms.items()}
+    equal = dict(
+        images=len(checks), octaves=sum(c["octaves"] for c in checks),
+        valid_rows=sum(c["valid_rows"] for c in checks),
+        mask_mismatches=sum(c["mask_mismatches"] for c in checks),
+        field_mismatches=sum(sum(c["field_mismatches"].values()) for c in checks))
+    return dict(
+        phase="fused", device=_device_info(dev), source=source,
+        group=len(grays), shape=list(grays.shape[1:]), reps=reps,
+        n_rounds=rounds, summary_ms_per_img=summary,
+        derived=dict(
+            loc_cum_plain=summary["plain"] - summary["extrema"],
+            loc_cum_resident=summary["resident"] - summary["extrema"],
+            resident_saving_ms_per_img=summary["plain"] - summary["resident"]),
+        rounds_ms_per_img=rounds_ms, plain_vs_resident=equal,
+        ok=equal["valid_rows"] > 0 and equal["mask_mismatches"] == 0
+        and equal["field_mismatches"] == 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m vfx_image_stitching_tpu_torch.probes.localize_resident_r4")
-    ap.add_argument("phase", choices=("feas1", "feas2", "newton"))
+    ap.add_argument("phase", choices=("feas1", "feas2", "newton", "fused"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--group", type=int, default=6, help="fused: images")
+    ap.add_argument("--reps", type=int, default=8, help="fused: timed passes a round")
+    ap.add_argument("--rounds", type=int, default=5, help="fused: rounds")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     timer = None
@@ -300,7 +462,11 @@ def main(argv=None) -> int:
             print("localize_resident_r4: CUDA is not available", file=sys.stderr)
             return 1
         from vfx_image_stitching_tpu_torch.utils.timing import cuda_ms as timer
-    res = {"feas1": feas1, "feas2": feas2, "newton": newton}[args.phase](dev, timer=timer)
+    if args.phase == "fused":
+        res = fused(dev, group=args.group, reps=args.reps, rounds=args.rounds)
+    else:
+        res = {"feas1": feas1, "feas2": feas2, "newton": newton}[args.phase](
+            dev, timer=timer)
     for row in res.get("per_octave", ()):
         print(json.dumps(dict(phase="newton_octave", **row)))
     print(json.dumps({k: v for k, v in res.items() if k != "per_octave"}))
