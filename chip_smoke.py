@@ -58,7 +58,10 @@ step on every leaf), ``viz`` (both headless renderers on the chain's
 first two images, their panel inputs against a CPU run) and
 ``probe_fused`` (the localize probe's ``fused`` phase: plain against
 resident localization on every octave of a 6-image group, ms per image
-per mode).  The run's seconds come on a line of their
+per mode).  Then ``ratio_match``: ``match_descriptors`` with the Lowe
+ratio test at 0.7 and 0.8 on the chain's 17 SIFT and 17 Harris pairs,
+the card against the CPU bit for bit, the matches kept per ratio.  The
+run's seconds come on a line of their
 own; the line before the last is the kernel
 table; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, and the script then exits non-zero; without CUDA it exits
@@ -136,6 +139,9 @@ PATHS = {
             "pair_window_gather"),
     # the localize probe's fused phase: only its resident mode has a kernel
     "probe_fused": ("localize_newton_resident",),
+    # the chain's SIFT and Harris features for the Lowe ratio test
+    "ratio_match": ("localize_newton_resident", "orientation_histograms",
+                    "pair_window_gather"),
 }
 KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
 # float operations of the descriptor-histogram kernel per masked sample:
@@ -1732,6 +1738,65 @@ def cli(folder: str, work: str, ref) -> dict:
     return out
 
 
+def ratio_match(folder: str) -> dict:
+    """``match_descriptors`` with the Lowe ratio test on the chain's 17
+    adjacent pairs, features extracted on the card as the stitch does
+    (launch counts from 0: K1-K3 for SIFT, none for Harris): SIFT at
+    ``refine`` 1 and Harris at ``refine`` 8 with each backend's threshold,
+    at ratios 0.7 and 0.8 and without one.  ``best_idx`` and ``matched``
+    on the card equal the CPU's bit for bit on the same features; the
+    matches kept per ratio, a lower ratio's a subset of a higher one's and
+    those without a ratio, and some kept at 0.7."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
+        cylindrical_project_batch,
+    )
+    from vfx_image_stitching_tpu_torch.io import load_dataset, stack_dataset
+    from vfx_image_stitching_tpu_torch.match.nn import match_descriptors
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.pipeline.stitch import extract_features
+
+    images, focals, _paths = load_dataset(folder)
+    batch, _valid = stack_dataset(images)
+    cyl = cylindrical_project_batch(torch.as_tensor(batch).to("cuda"),
+                                    [float(f) for f in focals])
+    K.reset_launch_counts()
+    feats = {b: extract_features(cyl, StitchConfig(backend=b))[1:3]
+             for b in ("sift", "harris")}
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_launches("ratio_match", launches)
+    out = dict(phase="ratio_match", pairs=int(cyl.shape[0]) - 1,
+               launches={k: n for k, n in launches.items() if n})
+    ok = True
+    for backend, (descs, valid) in feats.items():
+        mcfg = StitchConfig(backend=backend).match()
+        args = (descs[:-1], valid[:-1], descs[1:], valid[1:], mcfg.desc_thresh)
+        host = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+        row = dict(refine=mcfg.refine, desc_thresh=mcfg.desc_thresh,
+                   valid_rows=int(valid[:-1].sum()))
+        kept = []
+        for ratio in (None, 0.7, 0.8):
+            got = match_descriptors(*args, refine=mcfg.refine, lowe_ratio=ratio)
+            want = match_descriptors(*host, refine=mcfg.refine, lowe_ratio=ratio)
+            equal = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            kept.append(got[1].cpu())
+            row[f"ratio_{ratio}"] = dict(
+                kept=int(got[1].sum()), kept_per_pair=got[1].sum(-1).tolist(),
+                cuda_equals_cpu=equal)
+            ok &= equal
+        nested = (not (kept[1] & ~kept[2]).any()) and not (kept[2] & ~kept[0]).any()
+        row["subsets"] = nested
+        ok &= nested and int(kept[1].sum()) > 0
+        out[backend] = row
+    emit(out)
+    if not ok:
+        raise AssertionError(f"ratio_match: {out}")
+    return out
+
+
 def main() -> int:
     import sys
 
@@ -1805,6 +1870,7 @@ def main() -> int:
         cli(chain4, work, chain4_ref)
         viz(folder, work)
         probe_fused(dev)
+        ratio_match(folder)
     by_path = dict(stitch=e2e["launches"], orient_v1=e2e["orient_v1"]["launches"],
                    harris=harris["launches"],
                    descriptor_histogram=k5_launches,

@@ -26,7 +26,8 @@ the loop of ``stitch_panorama``.  The mesh layer on two logical slots of
 the card equal to the unsharded step and ``stitch_many``; the
 visualizers' ``compute_stages`` and ``harris_match_pair`` on the card
 against the CPU; the localize probe's ``fused`` phase, ``plain`` equal to
-``resident`` with K1 the only kernel launched.
+``resident`` with K1 the only kernel launched.  The matcher's Lowe ratio
+test, equal to the CPU's.
 """
 
 import numpy as np
@@ -842,3 +843,34 @@ def test_fused_probe_on_cuda(dev):
     torch.cuda.synchronize()
     assert res["ok"] and res["plain_vs_resident"]["valid_rows"] > 40
     assert {k for k, v in K.LAUNCHES.items() if v} == {"localize_newton_resident"}
+
+
+# ---------------------------------------------------------------------------
+# the matcher's Lowe ratio test
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("refine", [1, 8])
+def test_match_descriptors_lowe_ratio_on_cuda_matches_cpu(dev, refine):
+    """``match_descriptors`` with a Lowe ratio on the card against the CPU
+    over a leading pair axis: every output equal, for integer descriptors
+    and the same ones / 64 (every distance sum exact in f32)."""
+    from vfx_image_stitching_tpu_torch.match.nn import match_descriptors
+
+    rng = np.random.default_rng(refine)
+    a = rng.integers(0, 40, (3, 300, 128))
+    b = rng.integers(0, 40, (3, 320, 128))
+    b[:, :300:2] = np.clip(a[:, ::2] + rng.integers(-6, 7, (3, 150, 128)), 0, 255)
+    b[:, 11] = b[:, 12]
+    va, vb = rng.random((3, 300)) > 0.1, rng.random((3, 320)) > 0.1
+    for scale, thresh in ((1.0, 25000.0), (64.0, 1.0)):
+        args = [torch.as_tensor(x) for x in ((a / scale).astype(np.float32), va,
+                                             (b / scale).astype(np.float32), vb)]
+        for ratio in (0.6, 0.8, 1.0):
+            for return_dist in (False, True):
+                kw = dict(refine=refine, lowe_ratio=ratio,
+                          return_dist=return_dist, margin=0.5)
+                want = match_descriptors(*args, thresh, **kw)
+                got = match_descriptors(*(x.to(dev) for x in args), thresh, **kw)
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w)
+        assert 0 < int(want[1].sum()) < int(va.sum())

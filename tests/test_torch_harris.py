@@ -156,9 +156,7 @@ def test_config_from_dict_carries_harris_config():
     tcfg = tc.config_from_dict(dataclasses.asdict(jcfg))
     assert tcfg.backend == "harris"
     assert tcfg.harris == tc.HarrisConfig(**dataclasses.asdict(jh))
-    assert dataclasses.asdict(tcfg.match()) == {
-        k: v for k, v in dataclasses.asdict(jcfg.match()).items()
-        if k != "lowe_ratio"}
+    assert dataclasses.asdict(tcfg.match()) == dataclasses.asdict(jcfg.match())
     img = _image("checker")
     with jax.disable_jit():
         jy, jx, _, jv, _ = JH.harris_corners(jnp.asarray(img), jh)

@@ -36,8 +36,7 @@ def test_config_copy_and_config_from_dict():
     from vfx_image_stitching_tpu_torch import config as tc
 
     # every port field equals the JAX default; the JAX fields the port
-    # lacks are exactly its TPU-variant switches, its unsupported outputs
-    # and the Lowe ratio (the port's matcher has no ratio test)
+    # lacks are exactly its TPU-variant switches and its unsupported outputs
     jax_only = set()
     for name in ("HarrisConfig", "SiftCapacities", "SiftConfig",
                  "MatchConfig", "StitchConfig"):
@@ -45,8 +44,7 @@ def test_config_copy_and_config_from_dict():
         td = dataclasses.asdict(getattr(tc, name)())
         assert _port_fields(jd, td) == td, name
         jax_only |= set(jd) - set(td)
-    assert jax_only == (tc._VARIANT_SWITCHES | set(tc._UNSUPPORTED)
-                        | {"lowe_ratio"})
+    assert jax_only == tc._VARIANT_SWITCHES | set(tc._UNSUPPORTED)
     assert jc.DEFAULT_CROP_MARGINS == tc.DEFAULT_CROP_MARGINS
 
     caps = jc.SiftCapacities(candidate_caps=(256, 96), max_keypoints=320,
@@ -64,7 +62,7 @@ def test_config_copy_and_config_from_dict():
     assert hash(tcfg) == hash(tc.config_from_dict(dataclasses.asdict(jcfg)))
     t_match = dataclasses.asdict(tcfg.match())
     assert _port_fields(dataclasses.asdict(jcfg.match()), t_match) == t_match
-    assert jcfg.match().lowe_ratio is None
+    assert tcfg.match().lowe_ratio is jcfg.match().lowe_ratio is None
 
     # capacity scaling and growth are copies too
     tcaps = tcfg.sift.capacities
@@ -119,6 +117,15 @@ def test_config_from_dict_jax_only_settings(where, field, value, accepted):
     else:
         with pytest.raises(ValueError, match=field):
             tc.config_from_dict(dataclasses.asdict(jcfg))
+
+
+def test_config_from_dict_refuses_unknown_field():
+    from vfx_image_stitching_tpu_torch import config as tc
+
+    d = dataclasses.asdict(tc.StitchConfig())
+    d["sift"]["capacities"]["desc_fp8"] = True
+    with pytest.raises(ValueError, match="SiftCapacities has no field 'desc_fp8'"):
+        tc.config_from_dict(d)
 
 
 def test_capacity_overflow_report_matches():

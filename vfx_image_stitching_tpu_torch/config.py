@@ -246,9 +246,12 @@ class MatchConfig:
     # reference uses 1.0 for unit-norm Harris descriptors
     # (image_stitching_harris.py:494) and 25000 for 0-255 scaled SIFT
     # descriptors (image_stitching_sift.py:325).  No Lowe ratio in the
-    # stitching path.
+    # stitching path; a ratio-test option exists for the matching API.
     desc_thresh: float = 1.0
     ransac_thresh: float = 3.0    # squared-distance vote threshold
+    # read by no code: match_descriptors takes its ratio as an argument
+    # and the stitch passes none; kept so JAX configs carry across
+    lowe_ratio: Optional[float] = None
     # top-k exact re-check width; 1 = trust the matmul distances (exact for
     # integer-valued SIFT descriptors), >1 = refine (float Harris descs)
     refine: int = 8

@@ -3,7 +3,8 @@
 The reference does an O(N_A * N_B * 128) pure-Python loop: nearest
 neighbor in squared L2, kept iff the best distance beats an *absolute*
 threshold (1.0 for unit-norm Harris descriptors, 25000 for 0..255-scaled
-SIFT descriptors; no Lowe ratio, no cross-check).
+SIFT descriptors; no Lowe ratio, no cross-check).  The matching API adds
+an optional Lowe ratio test, which the stitch never uses.
 
 ``|a|^2 + |b|^2 - 2 a.b`` via a matmul, then (``refine > 1``) an exact
 re-check of the top candidates per row.  For SIFT's integer-valued
@@ -18,7 +19,7 @@ strict ``<`` scan does.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +40,15 @@ def _first_min(d2: torch.Tensor):
     return torch.amin(d2, dim=-1), torch.argmin(d2, dim=-1).to(torch.int32)
 
 
+def _ratio_test(matched, best_dist, second, lowe_ratio: float):
+    """``matched & (best < r^2 * second)``: the ratio squared in Python,
+    rounded once to f32, then one f32 product, as the JAX package's line
+    computes it."""
+    r2 = torch.tensor(lowe_ratio * lowe_ratio, dtype=torch.float32,
+                      device=second.device)
+    return matched & (best_dist < r2 * second)
+
+
 def match_descriptors(
     desc_a: torch.Tensor,
     valid_a: torch.Tensor,
@@ -46,14 +56,20 @@ def match_descriptors(
     valid_b: torch.Tensor,
     desc_thresh: float,
     refine: int = 8,
+    lowe_ratio: Optional[float] = None,
     return_dist: bool = False,
     margin: float = 0.0,
 ) -> Tuple[torch.Tensor, ...]:
     """Per-A-row nearest neighbor in B under an absolute threshold.
 
-    Returns ``(best_idx, matched)`` (the Lowe-ratio option of the JAX
-    package's matcher serves its UI surface and is not ported yet).  With
-    ``return_dist=True`` also
+    Returns ``(best_idx, matched)``: for every A row, the best B index and
+    whether the match is kept (valid row, best exact distance below
+    ``desc_thresh`` and, with ``lowe_ratio``, below ``lowe_ratio**2``
+    times the runner-up's, strictly; the stitch never passes a ratio).
+    The runner-up is the row's minimum with the best column masked out
+    (``refine <= 1``) or the second of the sorted exact re-check
+    distances (``refine > 1``; the best itself when one candidate is
+    left, so no row passes).  With ``return_dist=True`` also
     returns ``(best_dist, second_dist, cand_idx (..., K, 4), cand_dist
     (..., K, 4), n_inmargin)`` — the top-4 candidate set by exact
     distance used by the knife-edge escalation, and per A row the count
@@ -68,9 +84,13 @@ def match_descriptors(
         # integer-descriptor path (SIFT): the matmul distances are exact
         best_dist, best_idx = _first_min(d2)
         matched = valid_a & (best_dist < desc_thresh) & (best_dist < _BIG)
+        cols = torch.arange(n_b, dtype=torch.int32, device=d2.device)
+        if lowe_ratio is not None:
+            masked = torch.where(cols == best_idx[..., None], big, d2)
+            matched = _ratio_test(matched, best_dist, torch.amin(masked, dim=-1),
+                                  lowe_ratio)
         if not return_dist:
             return best_idx, matched
-        cols = torch.arange(n_b, dtype=torch.int32, device=d2.device)
         n_cand = min(4, n_b)
         # iterative first-min + mask: the (value, first-index) order of a
         # stable top-4
@@ -112,6 +132,10 @@ def match_descriptors(
     ).to(torch.int32)
 
     matched = valid_a & (best_dist < desc_thresh) & (best_dist < _BIG)
+    if lowe_ratio is not None:
+        second = (torch.sort(exact, dim=-1).values[..., 1] if refine > 1
+                  else best_dist)
+        matched = _ratio_test(matched, best_dist, second, lowe_ratio)
     if not return_dist:
         return best_idx, matched
     n_cand = min(4, refine)

@@ -159,16 +159,20 @@ def sift_extract(
 
 
 def sift_batch(
-    batch: torch.Tensor, cfg: SiftConfig = SiftConfig()
+    batch: torch.Tensor, cfg: SiftConfig = SiftConfig(), mode: str = "map"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`sift_extract` over an (N, H, W[, 3]) batch, one image at a
-    time (the JAX package's ``lax.map`` mode), stacked."""
+    time, stacked.
+
+    ``mode`` is the JAX package's choice between ``lax.map`` (``"map"``)
+    and ``vmap`` (``"vmap"``), two schedules of one computation: here
+    every mode runs the images one at a time, so it is unused."""
     outs = [sift_extract(im, cfg) for im in batch]
     return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
 
 
 def sift_batch_with_stats(
-    batch: torch.Tensor, cfg: SiftConfig = SiftConfig()
+    batch: torch.Tensor, cfg: SiftConfig = SiftConfig(), mode: str = "map"
 ) -> Tuple[
     torch.Tensor, torch.Tensor, torch.Tensor,
     Dict[str, torch.Tensor], Dict[str, torch.Tensor],
@@ -179,7 +183,8 @@ def sift_batch_with_stats(
     stats)``: ``meta`` carries (N, K) size/angle/octave and the Newton
     cells — what the knife-edge escalation (models/sift/strict.py) needs
     to recompute a descriptor on host; ``stats`` carries per-stage
-    occupancy counts with an N-image leading axis.
+    occupancy counts with an N-image leading axis.  ``mode`` is
+    :func:`sift_batch`'s.
     """
     outs = []
     for im in batch:
