@@ -31,7 +31,16 @@ on the chain's small-bucket rows); then the end-to-end stitch of the chain (one
 warm-up, timed runs, launch counts, a profiled run, the whole chain on
 the CPU against the card's first run, shifts, pairs, escalation counts
 and bytes; the first four images on the card and the CPU, and those four
-again with ``VFX_ORIENT_V2=0``); then the chain stitched with the
+again with ``VFX_ORIENT_V2=0``); then ``batch_vmap``, the batched SIFT
+schedule (``mode="vmap"``, ``VFX_SIFT_BATCH_MODE=vmap``: every stage of
+every octave once over all 18 images) against the one-image schedule:
+every leaf of the chain's extraction equal, K1-K4 on the batched inputs
+it gave them, launches counted from 0 (once an octave, not once an
+image), the stitch in both schedules in turns (shifts, pairs,
+escalation counts, bytes; median walls, host syncs, peak memory), one
+profiled vmap stitch (device time, device kernels, idle share), the
+first four images' vmap stitch and extraction on the card against the
+CPU; then the chain stitched with the
 Harris backend, the reference's default (``harris_stitch``: every pair
 matched, repeats identical, wall median, device time and kernels of a
 profiled run, idle share, the CPU's shifts, pairs and bytes equal).  Each
@@ -142,6 +151,9 @@ PATHS = {
     # the chain's SIFT and Harris features for the Lowe ratio test
     "ratio_match": ("localize_newton_resident", "orientation_histograms",
                     "pair_window_gather"),
+    # the SIFT stitch in the batched schedule (VFX_SIFT_BATCH_MODE=vmap)
+    "batch_vmap": ("localize_newton_resident", "orientation_histograms",
+                   "pair_window_gather"),
 }
 KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
 # float operations of the descriptor-histogram kernel per masked sample:
@@ -203,34 +215,35 @@ def distinct_pixels(stack_shape, layer, rows, cols, mask) -> int:
     return int(hit.sum())
 
 
-def path_inputs(folder: str, dev) -> dict:
-    """Extract every image of the chain as the stitch does (decode,
-    cylindrical projection, gray, SIFT), recording the arguments of the
-    first octave-0 call of each kernel wrapper, and of the descriptor
-    stage (of every octave, too), on image 0: the kernels are then checked
-    and timed on exactly the tensors the path gives them (live-chunk rows,
-    invalid ones included).  Also returns the chain's per-octave stage
-    counts."""
-    import importlib
-
+def chain_gray(folder: str, dev):
+    """The chain's images as the stitch feeds SIFT: decoded, projected
+    onto the cylinder on ``dev``, gray."""
     import torch
 
-    from vfx_image_stitching_tpu_torch.config import StitchConfig
     from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
         cylindrical_project_batch,
     )
     from vfx_image_stitching_tpu_torch.io import load_dataset, stack_dataset
-    from vfx_image_stitching_tpu_torch.models.sift.extract import (
-        sift_batch_with_stats,
-    )
     from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_f32
 
     images, focals, _paths = load_dataset(folder)
     batch, _valid = stack_dataset(images)
-    gray = bgr_to_gray_f32(cylindrical_project_batch(
+    return bgr_to_gray_f32(cylindrical_project_batch(
         torch.as_tensor(batch).to(dev), [float(f) for f in focals]))
+
+
+def recorded_extraction(gray, cfg, mode: str = "map"):
+    """``sift_batch_with_stats(gray, cfg, mode)``, recording the arguments
+    of the first octave-0 call of each kernel wrapper (of each window
+    size for the window gather) and of the descriptor stage of every
+    octave of image 0.  Returns the outputs and the recorded calls."""
+    import importlib
+
+    from vfx_image_stitching_tpu_torch.models.sift.extract import (
+        sift_batch_with_stats,
+    )
+
     octave0 = (2 * gray.shape[-2], 2 * gray.shape[-1])
-    cfg = StitchConfig().sift
     calls = {}
     saved = [(importlib.import_module(m), n) for m, n in KERNEL_SITES]
     saved = [(mod, n, getattr(mod, n)) for mod, n in saved]
@@ -250,10 +263,28 @@ def path_inputs(folder: str, dev) -> dict:
     try:
         for mod, n, fn in saved:
             setattr(mod, n, recorder(n, fn))
-        _xy, _d, _v, _meta, stats = sift_batch_with_stats(gray, cfg)
+        out = sift_batch_with_stats(gray, cfg, mode)
     finally:
         for mod, n, fn in saved:
             setattr(mod, n, fn)
+    return out, calls
+
+
+def path_inputs(folder: str, dev) -> dict:
+    """Extract every image of the chain as the stitch does (decode,
+    cylindrical projection, gray, SIFT), recording the arguments of the
+    first octave-0 call of each kernel wrapper, and of the descriptor
+    stage (of every octave, too), on image 0: the kernels are then checked
+    and timed on exactly the tensors the path gives them (live-chunk rows,
+    invalid ones included).  Also returns the chain's per-octave stage
+    counts."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+
+    gray = chain_gray(folder, dev)
+    cfg = StitchConfig().sift
+    (_xy, _d, _v, _meta, stats), calls = recorded_extraction(gray, cfg)
     torch.cuda.synchronize()
 
     counts = {}
@@ -271,9 +302,10 @@ def path_inputs(folder: str, dev) -> dict:
     return dict(cfg=cfg, calls=calls, counts=counts)
 
 
-def newton_iterations(dog, layer, y, x, cv, cfg):
+def newton_iterations(dog, layer, y, x, cv, cfg, img=None):
     """Newton steps this run's candidates take (each reads one 3x3x3
-    cube), and the distinct DoG values those cubes cover."""
+    cube), and the distinct DoG values those cubes cover (``img``: each
+    row's image of an (N, L, H, W) batch of stacks)."""
     import torch
 
     from vfx_image_stitching_tpu_torch.models.sift.localize import (
@@ -283,12 +315,16 @@ def newton_iterations(dog, layer, y, x, cv, cfg):
     st = _init_state(layer, y, x)
     st["rejected"] = ~cv
     total = 0
-    hit = torch.zeros(dog.shape, dtype=torch.bool, device=dog.device)
+    n_l = dog.shape[-3]
+    hit = torch.zeros(dog.reshape(-1, *dog.shape[-2:]).shape, dtype=torch.bool,
+                      device=dog.device)
+    base = img * n_l if img is not None else torch.zeros_like(layer)
     for _ in range(cfg.max_localize_iters):
         active = ~(st["converged"] | st["rejected"])
         total += int(active.sum())
-        mark_cubes(hit, *(st[n][active] for n in ("l", "y", "x")))
-        st = newton_step(dog, st, cfg)
+        mark_cubes(hit, base[active] + st["l"][active], st["y"][active],
+                   st["x"][active])
+        st = newton_step(dog, st, cfg, img)
     return total, int(hit.sum())
 
 
@@ -302,6 +338,49 @@ def mark_cubes(hit, layer, y, x) -> None:
     hit[lc[:, None, None, None] + d[:, None, None],
         yc[:, None, None, None] + d[:, None],
         xc[:, None, None, None] + d] = True
+
+
+def orientation_bound(k2_args):
+    """K2's (and K4's) bound on these arguments: the distinct masked
+    pixels of both stacks read once, 4 int32 + 1 f32 + the validity byte
+    per row, the histograms written; ``ORIENT_OPS_PER_SAMPLE`` a masked
+    sample.  Returns ``(bound_ms, bound_by, masked samples, distinct
+    pixels)``."""
+    import torch
+
+    mag, ang, lyr, cy, cx, radius, wf, valid, half, nb = k2_args
+    h, w = mag.shape[-2:]
+    s = 2 * half + 1
+    rows_w = torch.arange(s, device=mag.device)
+    sy = (cy - half).clamp(0, max(h, s) - s)
+    sx = (cx - half).clamp(0, max(w, s) - s)
+    rr = sy[:, None] + rows_w
+    cc = sx[:, None] + rows_w
+    in_y = ((rr - cy[:, None]).abs() <= radius[:, None]) & (rr >= 1) & (rr <= h - 2)
+    in_x = ((cc - cx[:, None]).abs() <= radius[:, None]) & (cc >= 1) & (cc <= w - 2)
+    mask = in_y[:, :, None] & in_x[:, None, :] & valid[:, None, None]
+    samples = int(mask.sum())
+    distinct = distinct_pixels(mag.shape, lyr, rr, cc, mask)
+    n_k = lyr.shape[0]
+    b, by = bound_ms(distinct * 8 + n_k * (5 * 4 + 1) + n_k * nb * 4,
+                     samples * ORIENT_OPS_PER_SAMPLE)
+    return b, by, samples, distinct
+
+
+def window_bytes(args, want) -> int:
+    """K3's bytes on these arguments: the distinct pixels its windows
+    cover in both stacks read once, both windows written once, 3 int32
+    a row read (``want``: the plain version's outputs)."""
+    import torch
+
+    mag, _ang, wl = args[:3]
+    s = want[0].shape[-1]
+    r_idx = (want[2][:, None] + torch.arange(s, device=mag.device)).long()
+    c_idx = (want[3][:, None] + torch.arange(s, device=mag.device)).long()
+    inside = ((r_idx < mag.shape[-2])[:, :, None]
+              & (c_idx < mag.shape[-1])[:, None, :])
+    distinct = distinct_pixels(mag.shape, wl, r_idx, c_idx, inside)
+    return distinct * 8 + 2 * int(wl.shape[0]) * s * s * 4 + int(wl.shape[0]) * 3 * 4
 
 
 def check_kernels(inp: dict):
@@ -352,23 +431,9 @@ def check_kernels(inp: dict):
     # K2 and K4 (the same function, staged and unstaged) on K2's inputs
     k2_args = calls["orientation_histograms"][0]
     mag, ang, lyr, cy, cx, radius, wf, valid, half, nb = k2_args
-    h, w = mag.shape[-2:]
     s = 2 * half + 1
-    rows_w = torch.arange(s, device=mag.device)
-    sy = (cy - half).clamp(0, max(h, s) - s)
-    sx = (cx - half).clamp(0, max(w, s) - s)
-    rr = sy[:, None] + rows_w
-    cc = sx[:, None] + rows_w
-    in_y = ((rr - cy[:, None]).abs() <= radius[:, None]) & (rr >= 1) & (rr <= h - 2)
-    in_x = ((cc - cx[:, None]).abs() <= radius[:, None]) & (cc >= 1) & (cc <= w - 2)
-    mask = in_y[:, :, None] & in_x[:, None, :] & valid[:, None, None]
-    samples = int(mask.sum())
-    distinct = distinct_pixels(mag.shape, lyr, rr, cc, mask)
     n_k = lyr.shape[0]
-    # reads: the distinct masked pixels of both stacks, 4 int32 + 1 f32 +
-    # the validity byte per row; writes: the histograms
-    b, by = bound_ms(distinct * 8 + n_k * (5 * 4 + 1) + n_k * nb * 4,
-                     samples * ORIENT_OPS_PER_SAMPLE)
+    b, by, samples, distinct = orientation_bound(k2_args)
     want = K.orientation_histograms_plain(*k2_args)
     want128 = K.orientation_histograms_plain(*k2_args[:-1], 128)
     plain_ms = cuda_ms(lambda: K.orientation_histograms_plain(*k2_args), reps=5)
@@ -423,9 +488,6 @@ def check_kernels(inp: dict):
         r_idx = (want[2][:, None] + torch.arange(s, device=mag.device)).long()
         c_idx = (want[3][:, None] + torch.arange(s, device=mag.device)).long()
         l_idx = wl.long()[:, None, None]
-        inside = ((r_idx < mag.shape[-2])[:, :, None]
-                  & (c_idx < mag.shape[-1])[:, None, :])
-        distinct = distinct_pixels(mag.shape, wl, r_idx, c_idx, inside)
         ms = one_kernel_ms(lambda: K.pair_window_gather(*args), "pair_window_gather")
         # the cp.async load stage on the same inputs, moved 4 bytes off
         # 16-byte alignment
@@ -437,16 +499,15 @@ def check_kernels(inp: dict):
         if K.pair_window_load(*shifted, s) != "cp.async" or not all(
                 torch.equal(g, r) for g, r in zip(K.pair_window_gather(*s_args), want)):
             raise AssertionError(f"K3 half {half_cap}: cp.async stage differs")
+        n_bytes = window_bytes(args, want)
         k3[f"{s}x{s}"] = dict(
-            rows=int(wl.shape[0]), distinct_pixels=distinct,
+            rows=int(wl.shape[0]),
             load=K.pair_window_load(mag.contiguous(), ang.contiguous(), s), ms=ms,
             cp_async_ms=cuda_ms(lambda: K.pair_window_gather(*s_args)),
             plain_ms=cuda_ms(lambda: K.pair_window_gather_plain(*args), reps=5),
             library_ms=cuda_ms(lambda: ma[l_idx, r_idx[:, :, None],
                                           c_idx[:, None, :]]),
-            # both stacks read once, both windows written once
-            bytes=distinct * 8 + 2 * int(wl.shape[0]) * s * s * 4
-            + int(wl.shape[0]) * 3 * 4,
+            bytes=n_bytes,
         )
     if len(k3) != 2:
         raise AssertionError(f"K3 ran for {sorted(k3)} windows, not both buckets")
@@ -989,7 +1050,8 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
     )
     emit(out)
 
-    emit(profile_stitch(folder, out["median_s"]))
+    out["profile"] = profile_stitch(folder, out["median_s"])
+    emit(out["profile"])
 
     # the whole chain on the CPU against the card's first run: equal
     # shifts, pairs, escalation counts and panorama bytes
@@ -1028,8 +1090,302 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
     if not same:
         raise AssertionError("CUDA and CPU runs of the first 4 images differ")
     out["orient_v1"] = orient_v1(sub, gpu)
-    # the CLI phase runs on these four images against this stitch
+    # the CLI and batch_vmap phases run on these four images against this
+    # stitch; batch_vmap holds its stitches to the chain's first run
     out["chain4"] = (sub, gpu)
+    out["reference"] = res
+    return out
+
+
+def host_syncs(fn) -> int:
+    """The synchronizing CUDA operations of a call of ``fn`` (reads of a
+    device value on the host, blocking copies), counted through
+    ``torch.cuda.set_sync_debug_mode``'s warnings."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in seen)
+
+
+def batch_kernels(calls: dict, cfg) -> dict:
+    """K1-K4 on the batched inputs the batched schedule gave them at
+    octave 0 (every image's live rows in one launch): K1 and K3 bit for
+    bit against their plain versions, K2 and K4 within the orientation
+    contract (rtol 2e-5, atol 2e-3) and bit for bit against launches of
+    the same kernel on each image's rows alone; one device kernel a call;
+    times beside the plain versions' and the bounds."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    out = {}
+    args, kw = calls["localize_newton_resident"]
+    dog, layer, y, x, cv = args[:5]
+    img = kw["img"]
+    got = K.localize_newton_resident(*args, **kw)
+    want = K.localize_newton_plain(*args, **kw)
+    if not all(torch.equal(g, r) for g, r in zip(got, want)):
+        raise AssertionError("K1 differs from its plain version on the batch")
+    iters, cube_values = newton_iterations(dog, layer, y, x, cv, cfg, img)
+    n_k = layer.shape[0]
+    b, by = bound_ms(n_k * (4 * 4 + 1) + cube_values * 4 + n_k * (8 + 13) * 4,
+                     iters * 122)
+    out["localize_newton_resident"] = dict(
+        rows=n_k, images=int(dog.shape[0]), valid=int(cv.sum()),
+        newton_steps=iters, max_abs_err=0.0,
+        ms=one_kernel_ms(lambda: K.localize_newton_resident(*args, **kw),
+                         "localize_newton_resident"),
+        plain_ms=cuda_ms(lambda: K.localize_newton_plain(*args, **kw), reps=5),
+        bound_ms=b, bound_by=by)
+
+    k2_args = calls["orientation_histograms"][0]
+    mag, ang, lyr = k2_args[:3]
+    n_img = int(dog.shape[0])
+    n_l = 3
+    per = k2_args[2].shape[0] // n_img
+    b, by, samples, distinct = orientation_bound(k2_args)
+    want = K.orientation_histograms_plain(*k2_args)
+    plain_ms = cuda_ms(lambda: K.orientation_histograms_plain(*k2_args), reps=5)
+    stacks = (mag.view(n_img, n_l, *mag.shape[-2:]),
+              ang.view(n_img, n_l, *ang.shape[-2:]))
+    for name, fn in (("orientation_histograms", K.orientation_histograms),
+                     ("orientation_histograms_v1", K.orientation_histograms_v1)):
+        got = fn(*k2_args)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
+        for i in range(n_img):
+            rows = slice(i * per, (i + 1) * per)
+            alone = fn(stacks[0][i], stacks[1][i], k2_args[2][rows] - i * n_l,
+                       *(t[rows] for t in k2_args[3:8]), *k2_args[8:])
+            if not torch.equal(got[rows], alone):
+                raise AssertionError(f"{name}: the batch's rows differ from image {i}'s")
+        out[name] = dict(
+            rows=int(lyr.shape[0]), images=n_img, valid=int(k2_args[7].sum()),
+            masked_samples=samples, distinct_pixels=distinct,
+            max_abs_err=float((got - want).abs().max()),
+            ms=one_kernel_ms(lambda: fn(*k2_args), name), plain_ms=plain_ms,
+            bound_ms=b, bound_by=by)
+
+    k3, n_bytes = {}, 0
+    for (_n, half_cap), (args3, _kw) in sorted(
+            (k, v) for k, v in calls.items() if k[0] == "pair_window_gather"):
+        got = K.pair_window_gather(*args3)
+        want = K.pair_window_gather_plain(*args3)
+        if not all(torch.equal(g, r) for g, r in zip(got, want)):
+            raise AssertionError(f"K3 half {half_cap}: differs on the batch")
+        s = 2 * half_cap + 1
+        n_bytes += window_bytes(args3, want)
+        k3[f"{s}x{s}"] = dict(
+            rows=int(args3[2].shape[0]),
+            load=K.pair_window_load(args3[0].contiguous(), args3[1].contiguous(), s),
+            ms=one_kernel_ms(lambda: K.pair_window_gather(*args3),
+                             "pair_window_gather"),
+            plain_ms=cuda_ms(lambda: K.pair_window_gather_plain(*args3), reps=5))
+    if len(k3) != 2:
+        raise AssertionError(f"K3 ran for {sorted(k3)} windows, not both buckets")
+    b, by = bound_ms(n_bytes, 0.0)
+    out["pair_window_gather"] = dict(
+        rows=sum(v["rows"] for v in k3.values()), images=n_img, max_abs_err=0.0,
+        ms=sum(v["ms"] for v in k3.values()),
+        plain_ms=sum(v["plain_ms"] for v in k3.values()),
+        bound_ms=b, bound_by=by, buckets=k3)
+    return out
+
+
+def batch_vmap(folder: str, e2e: dict, timed_runs: int = 3) -> dict:
+    """The batched SIFT schedule (``mode="vmap"``, every stage once over
+    all N images) on the card against the one-image schedule: every leaf
+    of the chain's extraction equal, K1-K4 on the batched inputs
+    (``batch_kernels``), the launches of a vmap extraction and of a vmap
+    stitch counted from 0 (K1-K3 once an octave, K3 once a bucket, not
+    once an image), the stitch in both schedules in turns (a warm-up, then
+    ``timed_runs`` each: equal shifts, pairs, escalation counts, bytes),
+    one profiled vmap stitch (device time, device kernels, idle share;
+    the map stitch's from ``end_to_end``), host syncs and peak memory of
+    each schedule's stitch, and the first four images' vmap stitch and
+    extraction on the card against the CPU."""
+    import time
+    from unittest import mock
+
+    import torch
+
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.models.sift.extract import (
+        sift_batch_with_stats,
+    )
+
+    t_phase = time.time()
+    cfg = StitchConfig().sift
+    gray = chain_gray(folder, "cuda")
+    out = dict(phase="batch_vmap", images=int(gray.shape[0]),
+               shape=list(gray.shape[-2:]))
+
+    # the extraction: launches from 0 per schedule, every leaf equal
+    ext = {}
+    for mode in ("map", "vmap"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.reset_launch_counts()
+        t0 = time.time()
+        res = sift_batch_with_stats(gray, cfg, mode)
+        torch.cuda.synchronize()
+        ext[mode] = dict(seconds=time.time() - t0,
+                         launches={k: v for k, v in K.LAUNCHES.items() if v},
+                         peak_mb=(torch.cuda.max_memory_allocated() - base) / 2**20,
+                         out=res)
+    leaves = {}
+    for name, a, b in _leaf_pairs(ext["map"].pop("out"), ext["vmap"]["out"]):
+        leaves[name] = bool(torch.equal(a, b))
+    out["extraction"] = dict(ext, leaves_equal=all(leaves.values()))
+    out["extraction"]["vmap"].pop("out")
+    if not all(leaves.values()):
+        raise AssertionError(
+            f"vmap extraction differs from map: {[k for k, v in leaves.items() if not v]}")
+    vl = ext["vmap"]["launches"]
+    _res, calls = recorded_extraction(gray, cfg, "vmap")
+    out["kernels"] = batch_kernels(calls, cfg)
+
+    # the stitch in both schedules, in turns
+    def stitch(mode):
+        with mock.patch.dict(os.environ, VFX_SIFT_BATCH_MODE=mode):
+            return run_stitch(folder, "cuda")
+
+    K.reset_launch_counts()
+    t0 = time.time()
+    first = stitch("vmap")
+    first_s = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    check_result(first, N_IMAGES)
+    check_launches("batch_vmap", launches)
+    ref = e2e["reference"]
+    walls = {"map": [], "vmap": []}
+    timings = {"map": [], "vmap": []}
+    for _ in range(timed_runs):
+        for mode in ("map", "vmap"):
+            t0 = time.time()
+            r = stitch(mode)
+            walls[mode].append(time.time() - t0)
+            timings[mode].append(r.timings)
+            same = (r.shifts == ref.shifts and r.pairs == ref.pairs
+                    and all(r.timings[k] == ref.timings[k]
+                            for k in ("esc_n_pairs", "esc_n_rows"))
+                    and np.array_equal(r.panorama, ref.panorama))
+            if not same:
+                raise AssertionError(f"the {mode} stitch differs from the map stitch")
+    median = {m: _median(w) for m, w in walls.items()}
+    # the phases of each schedule's median run
+    phases = {m: {k: v for k, v in timings[m][int(np.argsort(w)[len(w) // 2])].items()
+                  if k not in ("esc_n_pairs", "esc_n_rows", "passes")}
+              for m, w in walls.items()}
+    peak, syncs = {}, {}
+    for mode in ("map", "vmap"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        syncs[mode] = host_syncs(lambda: stitch(mode))
+        peak[mode] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    with mock.patch.dict(os.environ, VFX_SIFT_BATCH_MODE="vmap"):
+        prof = profile_stitch(folder, median["vmap"])
+    mprof = e2e["profile"]
+    out["stitch"] = dict(
+        first_run_s=first_s, runs_s=walls, median_s=median, phases_s=phases,
+        launches={"vmap": {k: v for k, v in launches.items() if v},
+                  "map": {k: v for k, v in e2e["launches"].items() if v}},
+        escalated_pairs=int(first.timings["esc_n_pairs"]),
+        escalated_rows=int(first.timings["esc_n_rows"]),
+        equal_to_map=True, host_syncs=syncs, peak_mb=peak,
+        device_busy_s={"vmap": prof["device_busy_s"], "map": mprof["device_busy_s"]},
+        device_kernels={"vmap": prof["device_kernels"],
+                        "map": mprof["device_kernels"]},
+        device_idle_share={"vmap": prof["device_idle_share"],
+                           "map": mprof["device_idle_share"]},
+        profiled_wall_s={"vmap": prof["profiled_wall_s"],
+                         "map": mprof["profiled_wall_s"]},
+        top_vmap=prof["top"])
+    # once an octave (K3 once a bucket) for the batch: at most one launch
+    # an octave of each, where map launches once an image and octave
+    n_octaves = sum(1 for k in calls if k[0] == "descriptor_octave")
+    per_stitch = {k: launches[k] for k in PATHS["batch_vmap"]}
+    out["stitch"]["octaves"] = n_octaves
+    if (per_stitch["localize_newton_resident"] > n_octaves
+            or per_stitch["orientation_histograms"] > n_octaves
+            or per_stitch["pair_window_gather"] > 2 * n_octaves
+            or any(vl.get(k, 0) != v for k, v in per_stitch.items())):
+        raise AssertionError(f"vmap launches {per_stitch} for {n_octaves} octaves")
+
+    # the first four images: the vmap stitch and extraction on the card
+    # against the CPU
+    sub, gpu4 = e2e["chain4"]
+    with mock.patch.dict(os.environ, VFX_SIFT_BATCH_MODE="vmap"):
+        g4 = run_stitch(sub, "cuda")
+        c4 = run_stitch(sub, "cpu")
+    same4 = (g4.shifts == c4.shifts == gpu4.shifts and g4.pairs == c4.pairs
+             and np.array_equal(g4.panorama, c4.panorama))
+    g = sift_batch_with_stats(gray[:4], cfg, "vmap")
+    c = sift_batch_with_stats(gray[:4].cpu(), cfg, "vmap")
+    out["chain4"] = dict(stitch_equal=same4,
+                         extraction=extraction_contract(g, c))
+    out["seconds"] = time.time() - t_phase
+    emit(out)
+    if not (same4 and out["chain4"]["extraction"]["ok"]):
+        raise AssertionError("the first four images' vmap runs differ card to CPU")
+    return out
+
+
+def _leaf_pairs(a, b):
+    """(name, leaf of a, leaf of b) over two ``sift_batch_with_stats``
+    outputs."""
+    names = ("xy", "desc", "valid")
+    for name, x, y in zip(names, a[:3], b[:3]):
+        yield name, x, y
+    for part, pa, pb in (("meta", a[3], b[3]), ("stats", a[4], b[4])):
+        if sorted(pa) != sorted(pb):
+            raise AssertionError(f"{part} keys differ")
+        for key in sorted(pa):
+            yield f"{part}.{key}", pa[key], pb[key]
+
+
+def extraction_contract(gpu, cpu) -> dict:
+    """The card's extraction against the CPU's, on the rows valid on the
+    CPU, held to the stage contract of ``api_surface`` and ``viz``: the
+    mask, stats, xy and integer meta equal; size within rtol 1e-5 (K1 is
+    bit-exact); the angle within 2e-5 of a full turn (K2's reduction
+    order moves the histogram peak, and the angle is 360 minus it, so
+    its rounding is a fraction of 360 degrees, whatever its size; the
+    angle's own relative gap is reported beside it); descriptors 1 LSB
+    on under 2% of entries."""
+    import torch
+
+    g = [t.cpu() if torch.is_tensor(t) else {k: v.cpu() for k, v in t.items()}
+         for t in gpu]
+    v = cpu[2]
+    ints = ("octave", "ix", "iy", "jx", "jy", "jl")
+    d = (g[1][v] - cpu[1][v]).abs()
+    rel = {k: float(((g[3][k] - cpu[3][k])[v].abs()
+                     / cpu[3][k][v].abs().clamp_min(1e-6)).max())
+           for k in ("size", "angle")}
+    da = (g[3]["angle"] - cpu[3]["angle"])[v].double()
+    turn = float(((da + 180.0) % 360.0 - 180.0).abs().max() / 360.0)
+    out = dict(
+        keypoints=int(v.sum()),
+        mask_stats_equal=bool(torch.equal(g[2], v)) and all(
+            torch.equal(g[4][k], cpu[4][k]) for k in cpu[4]),
+        xy_ints_equal=bool(torch.equal(g[0][v], cpu[0][v])) and all(
+            torch.equal(g[3][k][v], cpu[3][k][v]) for k in ints),
+        max_rel=rel, angle_of_turn=turn, desc_max_lsb=float(d.max()),
+        desc_lsb_share=float((d > 0).float().mean()))
+    out["ok"] = (out["mask_stats_equal"] and out["xy_ints_equal"]
+                 and rel["size"] <= 1e-5 and turn <= 2e-5
+                 and out["desc_max_lsb"] <= 1.0 and out["desc_lsb_share"] < 0.02)
     return out
 
 
@@ -1860,6 +2216,7 @@ def main() -> int:
         p1_row, p_desc_launches = probe_desc(inp["calls"], dev)
         rows += [p1_row, *p_rows]
         e2e = end_to_end(work, folder)
+        batch = batch_vmap(folder, e2e)
         harris = harris_stitch(folder, smi)
         refs = compose_routes(folder)
         stage_api(folder, work, refs)
@@ -1878,6 +2235,13 @@ def main() -> int:
     for row in rows:
         row["launches"] = by_path[KERNEL_PATH[row["name"]]][row["name"]]
         row.pop("shape")
+        if row["name"] in batch["kernels"]:
+            # the batched schedule's launch: every image's rows at once
+            row["batch"] = dict(
+                {k: v for k, v in batch["kernels"][row["name"]].items()
+                 if k in ("rows", "images", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "max_abs_err")},
+                launches=batch["stitch"]["launches"]["vmap"].get(row["name"], 0))
     emit(dict(phase="total", seconds=time.time() - t_start))
     print(smi)
     emit(dict(kernels=rows))

@@ -874,3 +874,115 @@ def test_match_descriptors_lowe_ratio_on_cuda_matches_cpu(dev, refine):
                 for g, w in zip(got, want):
                     assert torch.equal(g.cpu(), w)
         assert 0 < int(want[1].sum()) < int(va.sum())
+
+
+# ---------------------------------------------------------------------------
+# the batched SIFT schedule (mode="vmap"): kernels over every image's rows
+# ---------------------------------------------------------------------------
+
+def _batch_helpers():
+    """tests/test_torch_batch_vmap.py (which imports no JAX), loaded by
+    path: the batches and arguments it makes."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_batch_vmap.py")
+    spec = importlib.util.spec_from_file_location("_torch_batch_vmap", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["octave0", "edge"])
+def test_localize_newton_kernel_batch_matches_plain(dev, case):
+    """K1 over a batch of stacks (an image index per row): integer and
+    float lanes bit for bit against the plain version and against one
+    launch per image; one launch, one device kernel a call; on stacks
+    10^4 apart, walks from the bottom and top layers stay in their image."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    B = _batch_helpers()
+    if case == "octave0":
+        dog = search = B.octave0_stacks(B.uneven_batch(device=dev))[0]
+    else:
+        dog, search = B.edge_dog_batch(dev)
+    (layer, y, x, valid), img, per = B.newton_batch_args(dog, search)
+    n0 = K.LAUNCHES["localize_newton_resident"]
+    got = K.localize_newton_resident(dog, layer, y, x, valid, 5, 3, 5, img=img)
+    assert K.LAUNCHES["localize_newton_resident"] == n0 + 1
+    want = K.localize_newton_plain(dog, layer, y, x, valid, 5, 3, 5, img=img)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    cap = per[0][0].shape[0]
+    for i, cand in enumerate(per):
+        alone = K.localize_newton_resident(dog[i], *cand, 5, 3, 5)
+        assert all(torch.equal(g[i * cap:(i + 1) * cap], a)
+                   for g, a in zip(got, alone))
+    assert _one_device_kernel(
+        lambda: K.localize_newton_resident(dog, layer, y, x, valid, 5, 3, 5, img=img),
+        "localize_newton_resident")
+
+
+@pytest.mark.parametrize("half", [12, 28, 44])
+def test_orientation_and_window_kernels_batch_stack(dev, half):
+    """K2, K4 and K3 over the (N*3, H, W) stack of a batch's gradient
+    fields, each row at its image's layers (windows at every layer edge):
+    K2 and K4 within the orientation contract of the plain version and
+    bit for bit equal to a launch on each image's rows alone; K3 bit for
+    bit against the plain version (its tensor map over the taller stack)."""
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    B = _batch_helpers()
+    _dog, mag, ang = B.octave0_stacks(B.uneven_batch(device=dev))
+    args, per = B.orientation_batch_args(mag, ang, k=300, half=min(half, 20))
+    k = per[0][0].shape[0]
+    want = K.orientation_histograms_plain(*args, min(half, 20), 36)
+    for fn in (K.orientation_histograms, K.orientation_histograms_v1):
+        got = fn(*args, min(half, 20), 36)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-3)
+        for i, p in enumerate(per):
+            alone = fn(mag[i], ang[i], *p, min(half, 20), 36)
+            assert torch.equal(got[i * k:(i + 1) * k], alone)
+    assert K.pair_window_load(*args[:2], 2 * half + 1) == "tma"
+    got = K.pair_window_gather(*args[:5], half)
+    want = K.pair_window_gather_plain(*args[:5], half)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_vmap_extraction_and_stitch_on_cuda_match_map(dev, tmp_path, monkeypatch):
+    """On the card, ``mode="vmap"`` equals ``mode="map"`` on every leaf of
+    the uneven batch, launching K1 and K2 at most once an octave and K3
+    at most twice (a bucket each), where map launches per image; the
+    ``VFX_SIFT_BATCH_MODE=vmap`` stitch gives the map stitch's shifts,
+    pairs and bytes."""
+    from vfx_image_stitching_tpu_torch.config import SiftConfig
+    from vfx_image_stitching_tpu_torch.models.sift import extract as te
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
+
+    B = _batch_helpers()
+    cfg = SiftConfig(capacities=B.small_caps())
+    batch = B.uneven_batch(device=dev)
+    runs = {}
+    for mode in ("map", "vmap"):
+        K.reset_launch_counts()
+        runs[mode] = (te.sift_batch_with_stats(batch, cfg, mode), dict(K.LAUNCHES))
+    for (name, g), (_n, w) in zip(B.leaves(runs["vmap"][0]), B.leaves(runs["map"][0])):
+        assert torch.equal(g, w), name
+    octaves = runs["map"][0][4]["cand_caps"].shape[1]
+    vl, ml = runs["vmap"][1], runs["map"][1]
+    assert 0 < vl["localize_newton_resident"] <= octaves
+    assert 0 < vl["orientation_histograms"] <= octaves
+    assert 0 < vl["pair_window_gather"] <= 2 * octaves
+    assert ml["localize_newton_resident"] > vl["localize_newton_resident"]
+
+    synth_chain(str(tmp_path), 3, 96, 128, seed=4, focal=300.0)
+    out = {}
+    for mode in ("map", "vmap"):
+        monkeypatch.setenv("VFX_SIFT_BATCH_MODE", mode)
+        out[mode] = stitch_panorama(str(tmp_path), backend="sift", crop_margin=8,
+                                    device="cuda")
+    assert out["map"].shifts == out["vmap"].shifts
+    assert out["map"].pairs == out["vmap"].pairs
+    assert np.array_equal(out["map"].panorama, out["vmap"].panorama)

@@ -163,18 +163,23 @@ __device__ __forceinline__ void write_lanes(const NewtonState& s, int* __restric
 // The body of K1's and P4's kernels, which differ only in their C entry:
 // one candidate per warp, NEWTON_WARPS warps a block; valid candidates
 // walk, invalid ones get the zero row, and the warp writes the row.
+// With img (K1 over a batch of images), candidate i walks the stack of
+// image img[i], which starts stack_elems floats after the previous one;
+// its layer bounds are that stack's, so a walk never leaves its image.
 constexpr int NEWTON_WARPS = 8;
 
 __device__ __forceinline__ void localize_rows(
     const float* __restrict__ dog, int h, int w, const int* __restrict__ layer,
     const int* __restrict__ ys, const int* __restrict__ xs,
     const unsigned char* __restrict__ valid, int k, int border, int num_intervals,
-    int max_iters, int* __restrict__ outi, float* __restrict__ outf) {
+    int max_iters, const int* __restrict__ img, size_t stack_elems,
+    int* __restrict__ outi, float* __restrict__ outf) {
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * NEWTON_WARPS + (threadIdx.x >> 5);
   if (i >= k) return;  // whole warps
+  const float* stack = img ? dog + (size_t)img[i] * stack_elems : dog;
   const NewtonState s =
-      valid[i] ? newton_walk_warp(dog, h, w, border, num_intervals, max_iters,
+      valid[i] ? newton_walk_warp(stack, h, w, border, num_intervals, max_iters,
                                   layer[i], ys[i], xs[i], lane)
                : newton_start(0, 0, 0);
   write_lanes(s, outi + (size_t)i * NEWTON_INTS, outf + (size_t)i * NEWTON_FLOATS,

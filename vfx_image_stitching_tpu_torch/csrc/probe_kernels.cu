@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(sift::NEWTON_WARPS * 32) localize_resident_r4_
     int border, int num_intervals, int max_iters, float* __restrict__ outf,
     int* __restrict__ outi) {
   sift::localize_rows(dog, h, w, layer, ys, xs, valid, k, border, num_intervals,
-                      max_iters, outi, outf);
+                      max_iters, nullptr, 0, outi, outf);
 }
 
 // ---------------------------------------------------------------------------

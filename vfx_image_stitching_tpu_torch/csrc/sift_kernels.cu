@@ -30,16 +30,17 @@ using sift::clampi;
 // the early exit is the warp's own.  Lane c < 21 writes value c of the
 // row (the integer lanes, then the 13 float lanes of the last compute);
 // invalid candidates get zero rows.  The caller passes only the live
-// leading chunks.
+// leading chunks.  Over a batch of images (img non-null) candidate i walks
+// image img[i]'s stack, stack_elems floats a stack.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(sift::NEWTON_WARPS * 32) localize_newton_kernel(
     const float* __restrict__ dog, int h, int w,
     const int* __restrict__ layer, const int* __restrict__ ys,
     const int* __restrict__ xs, const unsigned char* __restrict__ valid, int k,
-    int border, int num_intervals, int max_iters, int* __restrict__ outi,
-    float* __restrict__ outf) {
+    int border, int num_intervals, int max_iters, const int* __restrict__ img,
+    size_t stack_elems, int* __restrict__ outi, float* __restrict__ outf) {
   sift::localize_rows(dog, h, w, layer, ys, xs, valid, k, border, num_intervals,
-                      max_iters, outi, outf);
+                      max_iters, img, stack_elems, outi, outf);
 }
 
 // ---------------------------------------------------------------------------
@@ -849,14 +850,17 @@ extern "C" {
 
 int sift_localize_newton(const void* dog, int h, int w, const void* layer,
                          const void* y, const void* x, const void* valid, int k,
-                         int border, int num_intervals, int max_iters, void* outi,
+                         int border, int num_intervals, int max_iters,
+                         const void* img, long long stack_elems, void* outi,
                          void* outf, void* stream) {
+  // img: each candidate's image in a batch of stacks, or null for one stack
+  if (img && stack_elems <= 0) return (int)cudaErrorInvalidValue;
   localize_newton_kernel<<<(k + sift::NEWTON_WARPS - 1) / sift::NEWTON_WARPS,
                            sift::NEWTON_WARPS * 32, 0,
                            (cudaStream_t)stream>>>(
       (const float*)dog, h, w, (const int*)layer, (const int*)y, (const int*)x,
-      (const unsigned char*)valid, k, border, num_intervals, max_iters, (int*)outi,
-      (float*)outf);
+      (const unsigned char*)valid, k, border, num_intervals, max_iters,
+      (const int*)img, (size_t)stack_elems, (int*)outi, (float*)outf);
   return (int)cudaGetLastError();
 }
 

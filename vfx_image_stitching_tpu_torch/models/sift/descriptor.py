@@ -27,8 +27,10 @@ import torch
 
 from vfx_image_stitching_tpu_torch.config import SiftConfig
 from vfx_image_stitching_tpu_torch.models.sift.chunking import (
+    batch_rows,
     chunk_size,
     live_chunk_bound,
+    live_rows,
 )
 from vfx_image_stitching_tpu_torch.models.sift.kernels import (
     descriptor_histograms,
@@ -41,6 +43,11 @@ from vfx_image_stitching_tpu_torch.models.sift.keypoints import (
     take,
     unpack_octave,
 )
+
+# Rows of one pass of the batched schedule's descriptor stage (a whole
+# number of GEMM chunks): bounds its two-hot intermediates, about 3 MB a
+# row at S = 89, while one pass still covers many images' rows.
+BATCH_PASS_ROWS = 1024
 
 
 def _finalize(vec: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
@@ -83,17 +90,19 @@ def compute_descriptors(
     half_cap: int,
     rows_dim: int,
     cols_dim: int,
+    gemm_rows: int | None = None,
 ) -> torch.Tensor:
     """(K, 128) descriptors for *converted* keypoints of one octave, from
     their (K, S, S) gradient windows starting at rows ``sy``, cols ``sx``
-    of the octave's (rows_dim, cols_dim) gradient fields."""
+    of the octave's (rows_dim, cols_dim) gradient fields; ``gemm_rows``
+    is :func:`kernels.trilinear_histograms`'s."""
     (_layer, pt_x, pt_y, angle, cos_a, sin_a, hist_width, half_w) = (
         _window_params(kps, cfg, rows_dim, cols_dim, half_cap)
     )
     hist, _mask = trilinear_histograms(
         magw, angw, sy, sx, pt_y, pt_x, half_w, cos_a, sin_a, hist_width,
         angle, kps.valid, rows_dim, cols_dim, cfg.desc_bins, cfg.window_width,
-        fused_offset=False,
+        fused_offset=False, gemm_rows=gemm_rows,
     )
     return _finalize(hist, cfg)
 
@@ -167,34 +176,59 @@ def compute_descriptors_chunked(
     One window-gather launch covers every live keypoint (the copy is
     exact, so its batching does not change a value); the GEMM then runs
     chunk by chunk.  Rows of dead chunks are zero.
+
+    (N, L, H, W) stacks take (N, K) keypoints and give (N, K, 128): one
+    window-gather launch over the batch's live rows, each row at its own
+    image's planes, then passes of :data:`BATCH_PASS_ROWS` rows whose
+    elementwise work runs once a pass; the GEMM keeps the one-image
+    schedule's shape, one ``desc_chunk`` a call, so its library picks the
+    same algorithm and gives the same bits.
     """
     caps = cfg.capacities
     if half_cap is None:
         half_cap = caps.max_half_width
     k = kps.capacity
+    lead = kps.x.shape[:-1]
     out_dim = cfg.window_width * cfg.window_width * cfg.desc_bins
-    out = torch.zeros((k, out_dim), dtype=torch.float32, device=mag_stack.device)
+    out = torch.zeros(lead + (k, out_dim), dtype=torch.float32,
+                      device=mag_stack.device)
     if k == 0:
         return out
     chunk = chunk_size(k, min(caps.desc_chunk, k))
-    n_rows = live_chunk_bound(kps.valid, chunk) * chunk
+    n_rows, own = live_rows(kps.valid, chunk)
     if n_rows == 0:
         return out
     rows_dim, cols_dim = mag_stack.shape[-2:]
-    live = Keypoints(*[f[:n_rows] for f in kps])
+    n_layers = mag_stack.shape[-3]
+    fields, img = batch_rows(mag_stack, *[f[..., :n_rows] for f in kps])
+    live = Keypoints(*fields)
     layer, pt_x, pt_y, *_rest = _window_params(live, cfg, rows_dim, cols_dim,
                                                half_cap)
-    lyr = (layer - layer_base).clamp(0, mag_stack.shape[-3] - 1)
+    lyr = (layer - layer_base).clamp(0, n_layers - 1)
+    step = chunk
+    res = out
+    if img is not None:
+        lyr = lyr + img * n_layers
+        mag_stack = mag_stack.reshape((-1, rows_dim, cols_dim))
+        ang_stack = ang_stack.reshape((-1, rows_dim, cols_dim))
+        step = max(BATCH_PASS_ROWS // chunk, 1) * chunk
+        res = torch.empty((live.x.shape[0], out_dim), dtype=torch.float32,
+                          device=out.device)
     magw, angw, sy, sx = pair_window_gather(
         mag_stack, ang_stack, lyr, pt_y, pt_x, half_cap
     )
-    for a in range(0, n_rows, chunk):
-        b = a + chunk
-        out[a:b] = compute_descriptors(
+    for a in range(0, live.x.shape[0], step):
+        b = a + step
+        res[a:b] = compute_descriptors(
             magw[a:b], angw[a:b], sy[a:b], sx[a:b],
             Keypoints(*[f[a:b] for f in live]), cfg, half_cap,
-            rows_dim, cols_dim,
+            rows_dim, cols_dim, gemm_rows=chunk,
         )
+    if img is not None:
+        keep = torch.arange(n_rows, device=own.device) < own[:, None]
+        out[:, :n_rows] = torch.where(
+            keep[..., None], res.reshape(lead + (n_rows, out_dim)),
+            torch.zeros((), dtype=torch.float32, device=out.device))
     return out
 
 
@@ -214,7 +248,9 @@ def compute_descriptors_bucketed(
     small-window pass (correct because masks discard samples beyond each
     keypoint's own half_w); the rest — plus any small-group overflow,
     which the big window also computes correctly — take the full-window
-    pass.  Returns ``(descriptors, big-bucket count)``.
+    pass.  Returns ``(descriptors, big-bucket count)``.  A batch of
+    images ((N, L, H, W) stacks, (N, K) keypoints) splits and compacts
+    each image's rows on its own and runs one window gather per bucket.
     """
     caps = cfg.capacities
     k = kps.capacity
@@ -222,29 +258,32 @@ def compute_descriptors_bucketed(
     half_w = _window_params(kps, cfg, rows_dim, cols_dim,
                             caps.max_half_width)[-1]
     is_small = kps.valid & (half_w <= caps.desc_small_half)
-    small_rank = torch.cumsum(is_small.to(torch.int32), 0) - 1
+    small_rank = torch.cumsum(is_small.to(torch.int32), -1) - 1
     in_small = is_small & (small_rank < small_cap)
     in_big = kps.valid & ~in_small
 
-    idx_small = _compact_order(in_small)[:small_cap]
-    idx_big = _compact_order(in_big)[:big_cap]
+    idx_small = _compact_order(in_small)[..., :small_cap]
+    idx_big = _compact_order(in_big)[..., :big_cap]
     d_small = compute_descriptors_chunked(
-        mag_stack, ang_stack, take(kps, idx_small, in_small[idx_small]),
+        mag_stack, ang_stack,
+        take(kps, idx_small, torch.take_along_dim(in_small, idx_small, -1)),
         octave, cfg, half_cap=caps.desc_small_half, layer_base=layer_base,
     )
     d_big = compute_descriptors_chunked(
-        mag_stack, ang_stack, take(kps, idx_big, in_big[idx_big]), octave, cfg,
-        layer_base=layer_base,
+        mag_stack, ang_stack,
+        take(kps, idx_big, torch.take_along_dim(in_big, idx_big, -1)),
+        octave, cfg, layer_base=layer_base,
     )
 
     # scatter back (each index list is a permutation prefix, so no two
     # rows collide), masked by membership before merging
-    full_small = torch.zeros((k, d_small.shape[-1]), dtype=torch.float32,
-                             device=d_small.device)
-    full_small[idx_small] = d_small
-    full_big = torch.zeros_like(full_small)
-    full_big[idx_big] = d_big
+    def scatter(idx, d):
+        full = torch.zeros(idx.shape[:-1] + (k, d.shape[-1]),
+                           dtype=torch.float32, device=d.device)
+        return full.scatter(-2, idx[..., None].expand(d.shape), d)
+
     zero = torch.zeros((), dtype=torch.float32, device=d_small.device)
-    desc = torch.where(in_small[:, None], full_small,
-                       torch.where(in_big[:, None], full_big, zero))
-    return desc, torch.sum(in_big)
+    desc = torch.where(in_small[..., None], scatter(idx_small, d_small),
+                       torch.where(in_big[..., None], scatter(idx_big, d_big),
+                                   zero))
+    return desc, torch.sum(in_big, dim=-1)

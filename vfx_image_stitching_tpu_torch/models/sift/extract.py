@@ -10,6 +10,14 @@ contiguous per-octave gradient stacks.
 Localization always takes the resident-kernel path
 (:func:`localize.localize_candidates_resident`); on CPU tensors every
 kernel runs its plain PyTorch version.
+
+A batch runs in one of the JAX package's two schedules of the same
+computation: ``mode="map"`` extracts one image at a time;
+``mode="vmap"`` runs every stage of every octave once over all N images
+(:func:`sift_keypoints_and_descriptors_batch`), so each kernel launches
+once a stage (a bucket) for the batch, and each stage reads its
+live-chunk bound back once for the batch instead of once an image.  The
+two give the same bits.
 """
 
 from __future__ import annotations
@@ -69,10 +77,36 @@ def sift_keypoints_and_descriptors(
     that no fixed capacity truncated (the masked-array analogue of the
     reference's dynamic lists).
     """
-    dev = image.device
-    gray = _to_gray(image)
+    return _sift(_to_gray(image), cfg)
+
+
+def sift_keypoints_and_descriptors_batch(
+    batch: torch.Tensor, cfg: SiftConfig = SiftConfig()
+) -> Tuple[Keypoints, torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`sift_keypoints_and_descriptors` of every image of an (N, H,
+    W[, 3]) batch at once -> (Keypoints (N, K), (N, K, 128) descriptors,
+    stats with a leading N axis), each image's values those of the
+    one-image function.
+
+    Every stage runs once over the batch's stacked octave: the kernels
+    take all N images' rows in one launch, and each stage processes the
+    live chunks of the image that needs the most (the rest of each
+    image's rows come out zero, as the one-image function pads them).
+    """
+    gray = (bgr_to_gray_f32(batch) if batch.ndim == 4 and batch.shape[-1] == 3
+            else batch.to(torch.float32))
+    return _sift(gray, cfg)
+
+
+def _sift(
+    gray: torch.Tensor, cfg: SiftConfig
+) -> Tuple[Keypoints, torch.Tensor, Dict[str, torch.Tensor]]:
+    """The extraction of an (H, W) gray image, or of an (N, H, W) batch
+    with every stage over the leading image axis."""
+    dev = gray.device
+    lead = gray.shape[:-2]
     base = generate_base_image(gray, cfg.sigma, cfg.assumed_blur)
-    num_octaves = compute_number_of_octaves(base.shape)
+    num_octaves = compute_number_of_octaves(base.shape[-2:])
     kernels = generate_gaussian_kernels(cfg.sigma, cfg.num_intervals)
     pyramid = generate_gaussian_images(base, num_octaves, kernels)
     dogs = generate_dog_images(pyramid)
@@ -93,13 +127,15 @@ def sift_keypoints_and_descriptors(
         )
         loc = localize_candidates_resident(dog, layer, y, x, cand_valid, o, cfg)
         loc_cap = min(caps.scaled_localized(o), cand_cap)
-        loc_counts.append(torch.sum(loc.valid))
+        loc_counts.append(torch.sum(loc.valid, dim=-1))
         loc_caps.append(loc_cap)
         loc = compact_localized(loc, loc_cap)
         # gradient fields are consumed only at the localized layers
-        # 1..num_intervals, and only when the octave localized anything
+        # 1..num_intervals, and only when the octave localized anything;
+        # a batch computes them for every image (JAX vmap's select), and
+        # an image that localized nothing never reads its own
         grad_src = pyramid[o][..., 1 : cfg.num_intervals + 1, :, :]
-        if bool(loc.valid.any()):
+        if lead or bool(loc.valid.any()):
             mag, ang = gradient_fields(grad_src)
         else:
             mag, ang = torch.zeros_like(grad_src), torch.zeros_like(grad_src)
@@ -119,30 +155,31 @@ def sift_keypoints_and_descriptors(
         else:
             desc = compute_descriptors_chunked(mag, ang, kps_c, o, cfg,
                                                layer_base=1)
-            desc_big_counts.append(torch.zeros((), dtype=torch.int64, device=dev))
+            desc_big_counts.append(torch.zeros(lead, dtype=torch.int64, device=dev))
             desc_big_caps.append(1)
         per_kps.append(kps_c)
         per_desc.append(desc)
-        cand_counts.append(torch.sum(cand_valid))
-        oriented_counts.append(torch.sum(kps.valid))
+        cand_counts.append(torch.sum(cand_valid, dim=-1))
+        oriented_counts.append(torch.sum(kps.valid, dim=-1))
         cand_caps.append(cand_cap)
         oriented_caps.append(o_cap)
 
     kps = concatenate(tuple(per_kps))
-    desc = torch.cat(per_desc, dim=0)
+    desc = torch.cat(per_desc, dim=-2)
     kps, desc = sort_and_dedup(kps, desc, caps.max_keypoints)
 
     def caps_t(vals):
-        return torch.tensor(vals, dtype=torch.int32, device=dev)
+        t = torch.tensor(vals, dtype=torch.int32, device=dev)
+        return t.expand(lead + t.shape).contiguous()
 
     stats = {
-        "cand_counts": torch.stack(cand_counts),
+        "cand_counts": torch.stack(cand_counts, dim=-1),
         "cand_caps": caps_t(cand_caps),
-        "loc_counts": torch.stack(loc_counts),
+        "loc_counts": torch.stack(loc_counts, dim=-1),
         "loc_caps": caps_t(loc_caps),
-        "oriented_counts": torch.stack(oriented_counts),
+        "oriented_counts": torch.stack(oriented_counts, dim=-1),
         "oriented_caps": caps_t(oriented_caps),
-        "desc_big_counts": torch.stack(desc_big_counts),
+        "desc_big_counts": torch.stack(desc_big_counts, dim=-1),
         "desc_big_caps": caps_t(desc_big_caps),
         "final_count": kps.count(),
         "final_cap": caps_t(caps.max_keypoints),
@@ -158,15 +195,27 @@ def sift_extract(
     return torch.stack([kps.x, kps.y], dim=-1), desc, kps.valid
 
 
+def _meta(kps: Keypoints) -> Dict[str, torch.Tensor]:
+    return {
+        "size": kps.size, "angle": kps.angle, "octave": kps.octave,
+        "ix": kps.ix, "iy": kps.iy,
+        "jx": kps.jx, "jy": kps.jy, "jl": kps.jl,
+    }
+
+
 def sift_batch(
     batch: torch.Tensor, cfg: SiftConfig = SiftConfig(), mode: str = "map"
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`sift_extract` over an (N, H, W[, 3]) batch, one image at a
-    time, stacked.
+    """:func:`sift_extract` over an (N, H, W[, 3]) batch, stacked.
 
-    ``mode`` is the JAX package's choice between ``lax.map`` (``"map"``)
-    and ``vmap`` (``"vmap"``), two schedules of one computation: here
-    every mode runs the images one at a time, so it is unused."""
+    ``mode`` picks the schedule, as in the JAX package: ``"vmap"`` runs
+    every stage once over all N images
+    (:func:`sift_keypoints_and_descriptors_batch`), any other mode
+    (``"map"``, the default) one image at a time.  Both give the same
+    bits; the batched schedule launches each kernel once a stage for the
+    batch and holds every image's intermediates at once."""
+    if mode == "vmap":
+        return sift_batch_with_stats(batch, cfg, mode)[:3]
     outs = [sift_extract(im, cfg) for im in batch]
     return tuple(torch.stack([o[i] for o in outs]) for i in range(3))
 
@@ -177,25 +226,24 @@ def sift_batch_with_stats(
     torch.Tensor, torch.Tensor, torch.Tensor,
     Dict[str, torch.Tensor], Dict[str, torch.Tensor],
 ]:
-    """SIFT over an (N, H, W[, 3]) batch, one image at a time.
+    """SIFT over an (N, H, W[, 3]) batch, in :func:`sift_batch`'s
+    schedule ``mode``.
 
     Returns ``(xy (N,K,2), descriptors (N,K,128), valid (N,K), meta,
     stats)``: ``meta`` carries (N, K) size/angle/octave and the Newton
     cells — what the knife-edge escalation (models/sift/strict.py) needs
     to recompute a descriptor on host; ``stats`` carries per-stage
-    occupancy counts with an N-image leading axis.  ``mode`` is
-    :func:`sift_batch`'s.
+    occupancy counts with an N-image leading axis.
     """
+    if mode == "vmap":
+        kps, desc, stats = sift_keypoints_and_descriptors_batch(batch, cfg)
+        xy = torch.stack([kps.x, kps.y], dim=-1)
+        return xy, desc, kps.valid, _meta(kps), stats
     outs = []
     for im in batch:
         kps, desc, stats = sift_keypoints_and_descriptors(im, cfg)
         xy = torch.stack([kps.x, kps.y], dim=-1)
-        meta = {
-            "size": kps.size, "angle": kps.angle, "octave": kps.octave,
-            "ix": kps.ix, "iy": kps.iy,
-            "jx": kps.jx, "jy": kps.jy, "jl": kps.jl,
-        }
-        outs.append((xy, desc, kps.valid, meta, stats))
+        outs.append((xy, desc, kps.valid, _meta(kps), stats))
     xy, desc, valid = (torch.stack([o[i] for o in outs]) for i in range(3))
     meta, stats = (
         {key: torch.stack([o[i][key] for o in outs]) for key in outs[0][i]}

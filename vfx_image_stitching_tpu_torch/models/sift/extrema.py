@@ -26,25 +26,27 @@ def _sep3(dog: torch.Tensor, op) -> torch.Tensor:
     """Separable 3x3x3 window reduction (VALID), one axis per pass."""
     r = op(op(dog[..., :-2], dog[..., 1:-1]), dog[..., 2:])
     r = op(op(r[..., :-2, :], r[..., 1:-1, :]), r[..., 2:, :])
-    return op(op(r[:-2], r[1:-1]), r[2:])
+    return op(op(r[..., :-2, :, :], r[..., 1:-1, :, :]), r[..., 2:, :, :])
 
 
 def extrema_mask(
     dog: torch.Tensor, border: int, threshold: float
 ) -> torch.Tensor:
-    """(3, H, W) bool: is (layer=i+1, y, x) a 26-neighbor extremum."""
+    """(…, 3, H, W) bool: is (layer=i+1, y, x) a 26-neighbor extremum of
+    the (…, 5, H, W) DoG stack (any leading image axes)."""
     h, w = dog.shape[-2:]
     win_max = _sep3(dog, torch.maximum)
     win_min = _sep3(dog, torch.minimum)
-    center = dog[1:4, 1 : h - 1, 1 : w - 1]
+    center = dog[..., 1:4, 1 : h - 1, 1 : w - 1]
     pos = (center > threshold) & (center == win_max)
     neg = (center < -threshold) & (center == win_min)
-    mask = torch.zeros((3, h, w), dtype=torch.bool, device=dog.device)
-    mask[:, 1 : h - 1, 1 : w - 1] = pos | neg
+    mask = torch.zeros(dog.shape[:-3] + (3, h, w), dtype=torch.bool,
+                       device=dog.device)
+    mask[..., 1 : h - 1, 1 : w - 1] = pos | neg
     inb = torch.zeros((h, w), dtype=torch.bool, device=dog.device)
     if h > 2 * border and w > 2 * border:
         inb[border : h - border, border : w - border] = True
-    return mask & inb[None, :, :]
+    return mask & inb
 
 
 def extract_candidates(
@@ -55,14 +57,17 @@ def extract_candidates(
     Position of the t-th set bit by a binary search of the running count
     (the JAX package's flat path; its two-level search selects the same
     bits).  Returns (layer, y, x, valid), each (capacity,); unfilled slots
-    carry index 0.
+    carry index 0.  A batch of (N, 5, H, W) stacks gives (N, capacity)
+    rows, each image's searched along its own flattened (layer, y, x).
     """
     h, w = dog.shape[-2:]
-    mask = extrema_mask(dog, border, threshold).reshape(-1)
-    csum = torch.cumsum(mask.to(torch.int32), 0).to(torch.int32)
+    lead = dog.shape[:-3]
+    mask = extrema_mask(dog, border, threshold).reshape(lead + (-1,))
+    csum = torch.cumsum(mask.to(torch.int32), -1).to(torch.int32)
     targets = torch.arange(1, capacity + 1, dtype=torch.int32, device=dog.device)
+    targets = targets.expand(lead + (capacity,)).contiguous()
     sel = torch.searchsorted(csum, targets, side="left").to(torch.int32)
-    valid = targets <= csum[-1]
+    valid = targets <= csum[..., -1:]
     sel = torch.where(valid, sel, torch.zeros_like(sel))
     i = torch.div(sel, h * w, rounding_mode="floor")
     rem = sel - i * (h * w)

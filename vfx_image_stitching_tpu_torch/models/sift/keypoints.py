@@ -15,7 +15,9 @@ _INT_MAX = torch.iinfo(torch.int32).max
 
 
 class Keypoints(NamedTuple):
-    """Fixed-capacity masked keypoint set (all fields shape (K,))."""
+    """Fixed-capacity masked keypoint set (all fields shape (K,), or (N, K)
+    for a batch of images; the set-level operations below act along the
+    last axis, image by image)."""
 
     x: torch.Tensor          # f32 pt[0]
     y: torch.Tensor          # f32 pt[1]
@@ -46,7 +48,7 @@ def concatenate(sets: Tuple[Keypoints, ...]) -> Keypoints:
 
 
 def take(kps: Keypoints, idx: torch.Tensor, idx_valid: torch.Tensor) -> Keypoints:
-    out = Keypoints(*[f[idx] for f in kps])
+    out = Keypoints(*[torch.take_along_dim(f, idx, -1) for f in kps])
     return out._replace(valid=out.valid & idx_valid)
 
 
@@ -69,11 +71,15 @@ def convert_keypoints_to_input_image_size(kps: Keypoints) -> Keypoints:
 
 
 def _stable_lexsort(keys) -> torch.Tensor:
-    """Permutation sorting by ``keys`` (last key primary), ties kept in
-    index order: stable sorts chained from the least significant key."""
-    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    """Permutation sorting by ``keys`` (last key primary) along the last
+    axis, ties kept in index order: stable sorts chained from the least
+    significant key."""
+    perm = torch.arange(keys[0].shape[-1], device=keys[0].device)
+    perm = perm.expand(keys[0].shape)
     for key in keys:
-        perm = perm[torch.sort(key[perm], stable=True).indices]
+        order = torch.sort(torch.take_along_dim(key, perm, -1), dim=-1,
+                           stable=True).indices
+        perm = torch.take_along_dim(perm, order, -1)
     return perm
 
 
@@ -87,26 +93,29 @@ def sort_and_dedup(
     every keypoint and Python's sort is stable, so the final tiebreak is
     the original emission order; then drop any keypoint whose (pt, size,
     angle) equals its predecessor's.  Invalid slots sort to the end; the
-    first ``out_capacity`` rows survive compaction.
+    first ``out_capacity`` rows survive compaction.  A batch sorts each
+    image's (N, K) row on its own; ``descriptors`` is then (N, K, D).
     """
     big = torch.full_like(kps.x, 3.0e38)
     x = torch.where(kps.valid, kps.x, big)
     y = torch.where(kps.valid, kps.y, big)
     order = _stable_lexsort((-kps.response, kps.angle, -kps.size, y, x))
-    s = Keypoints(*[f[order] for f in kps])
-    desc_s = descriptors[order]
+    s = Keypoints(*[torch.take_along_dim(f, order, -1) for f in kps])
 
     same_as_prev = (
-        (s.x == torch.roll(s.x, 1))
-        & (s.y == torch.roll(s.y, 1))
-        & (s.size == torch.roll(s.size, 1))
-        & (s.angle == torch.roll(s.angle, 1))
+        (s.x == torch.roll(s.x, 1, -1))
+        & (s.y == torch.roll(s.y, 1, -1))
+        & (s.size == torch.roll(s.size, 1, -1))
+        & (s.angle == torch.roll(s.angle, 1, -1))
     )
-    same_as_prev[0] = False
+    same_as_prev[..., 0] = False
     keep = s.valid & ~same_as_prev
-    comp_order = _compact_order(keep)[:out_capacity]
-    out = Keypoints(*[f[comp_order] for f in s])
-    return out._replace(valid=keep[comp_order]), desc_s[comp_order]
+    comp_order = _compact_order(keep)[..., :out_capacity]
+    out = Keypoints(*[torch.take_along_dim(f, comp_order, -1) for f in s])
+    # one gather of the descriptor rows, through both permutations
+    rows = torch.take_along_dim(order, comp_order, -1)
+    return (out._replace(valid=torch.take_along_dim(keep, comp_order, -1)),
+            torch.take_along_dim(descriptors, rows[..., None], -2))
 
 
 def remove_duplicate_keypoints(
@@ -117,13 +126,14 @@ def remove_duplicate_keypoints(
 
 
 def _compact_order(valid: torch.Tensor) -> torch.Tensor:
-    """Stable permutation putting valid rows first, both sides in order."""
-    ar = torch.arange(valid.shape[0], dtype=torch.int32, device=valid.device)
+    """Stable permutation (along the last axis) putting valid rows first,
+    both sides in order."""
+    ar = torch.arange(valid.shape[-1], dtype=torch.int32, device=valid.device)
     rank = torch.where(valid, ar, torch.full_like(ar, _INT_MAX))
-    return torch.argsort(rank, stable=True)
+    return torch.argsort(rank, dim=-1, stable=True)
 
 
 def compact(kps: Keypoints, out_capacity: int) -> Keypoints:
     """Keep valid rows (original order) in the first ``out_capacity`` slots."""
-    order = _compact_order(kps.valid)[:out_capacity]
-    return Keypoints(*[f[order] for f in kps])
+    order = _compact_order(kps.valid)[..., :out_capacity]
+    return Keypoints(*[torch.take_along_dim(f, order, -1) for f in kps])

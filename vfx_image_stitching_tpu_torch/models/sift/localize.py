@@ -28,9 +28,10 @@ import torch
 
 from vfx_image_stitching_tpu_torch.config import SiftConfig
 from vfx_image_stitching_tpu_torch.models.sift.chunking import (
+    batch_rows,
     chunk_size,
-    live_chunk_bound,
-    zero_pad_rows,
+    finish_rows,
+    live_rows,
 )
 
 
@@ -81,15 +82,19 @@ def _cube_offsets(h: int, w: int, device) -> torch.Tensor:
 
 
 def _cube_gather(dog: torch.Tensor, l: torch.Tensor, y: torch.Tensor,
-                 x: torch.Tensor) -> torch.Tensor:
-    """(27, K) cube around (l, y, x) from the (L, H, W) DoG, scaled /255.
+                 x: torch.Tensor, img: torch.Tensor | None = None) -> torch.Tensor:
+    """(27, K) cube around (l, y, x) from the (L, H, W) DoG, scaled /255;
+    from an (N, L, H, W) batch of stacks, image ``img`` of each row.
 
     Filler rows (``valid=False``) may point outside the stack; their
     indices are clamped (their values are never consumed).
     """
     h, w = dog.shape[-2:]
     flat = dog.reshape(-1)
-    center = (l.to(torch.int64) * h + y) * w + x
+    plane = l.to(torch.int64)
+    if img is not None:
+        plane = plane + img.to(torch.int64) * dog.shape[-3]
+    center = (plane * h + y) * w + x
     idx = (center[None, :] + _cube_offsets(h, w, dog.device)[:, None])
     cube = flat[idx.clamp_(0, flat.shape[0] - 1)]
     return _div(cube.to(torch.float32), 255.0)
@@ -142,14 +147,17 @@ def _solve3(h, g):
     )
 
 
-def newton_step(dog: torch.Tensor, st: dict, cfg: SiftConfig) -> dict:
+def newton_step(dog: torch.Tensor, st: dict, cfg: SiftConfig,
+                img: torch.Tensor | None = None) -> dict:
     """One masked Newton iteration (the JAX package's ``_make_newton_body``)
     over a state dict of (K,) lanes: compute -> store -> converge-check ->
-    move, for rows not yet converged or rejected."""
+    move, for rows not yet converged or rejected.  With an (N, L, H, W)
+    batch of stacks, row i walks image ``img[i]``'s stack (its layer
+    bounds are that stack's, so no walk leaves its image)."""
     h, w = dog.shape[-2:]
     border = cfg.image_border_width
     active = ~(st["converged"] | st["rejected"])
-    cube = _cube_gather(dog, st["l"], st["y"], st["x"])
+    cube = _cube_gather(dog, st["l"], st["y"], st["x"], img)
     (gx, gy, gs), hess, center = _derivatives(cube)
     ux, uy, us = _solve3(hess, (gx, gy, gs))
     (dxx, dyy, dss, dxy, dxs, dys) = hess
@@ -258,14 +266,19 @@ def localize_candidates_chunked(
 ) -> Localized:
     """The masked ``max_localize_iters``-step Newton loop over the live
     leading candidate chunks (rows are independent, so all live chunks
-    run as one batch); dead chunks come out as zero rows."""
-    k = layer.shape[0]
-    n_rows = live_chunk_bound(cand_valid, chunk_size(k, chunk)) * chunk_size(k, chunk)
-    st = _init_state(layer[:n_rows], y[:n_rows], x[:n_rows])
+    run as one batch); dead chunks come out as zero rows.  An (N, 5, H,
+    W) batch of stacks takes (N, K) candidates and gives (N, K) rows."""
+    k = layer.shape[-1]
+    n_rows, own = live_rows(cand_valid, chunk_size(k, chunk))
+    live = cand_valid[..., :n_rows]
+    (l, yy, xx), img = batch_rows(dog, layer[..., :n_rows], y[..., :n_rows],
+                                  x[..., :n_rows])
+    st = _init_state(l, yy, xx)
     for _ in range(cfg.max_localize_iters):
-        st = newton_step(dog, st, cfg)
-    loc = _finalize_localized(st, cand_valid[:n_rows], octave, cfg)
-    return zero_pad_rows(loc, k)
+        st = newton_step(dog, st, cfg, img)
+    st = {name: v.reshape(live.shape) for name, v in st.items()}
+    loc = _finalize_localized(st, live, octave, cfg)
+    return finish_rows(loc, own, k)
 
 
 def compact_localized(loc: Localized, out_capacity: int) -> Localized:
@@ -278,8 +291,8 @@ def compact_localized(loc: Localized, out_capacity: int) -> Localized:
         _compact_order,
     )
 
-    order = _compact_order(loc.valid)[:out_capacity]
-    return Localized(*[f[order] for f in loc])
+    order = _compact_order(loc.valid)[..., :out_capacity]
+    return Localized(*[torch.take_along_dim(f, order, -1) for f in loc])
 
 
 def localize_candidates_resident(
@@ -306,6 +319,10 @@ def localize_candidates_resident(
     dead chunks come out as zero, ``valid=False`` rows.  Octaves with
     h < 16 (which carry no candidates at border width 5) take the plain
     path, as in the JAX package.
+
+    An (N, 5, H, W) batch of stacks takes (N, K) candidates: one launch
+    walks the live rows of every image (to the batch's bound), each row
+    in its own image's stack, and gives (N, K) rows.
     """
     if dog.shape[-2] < 16:
         return localize_candidates_chunked(
@@ -315,13 +332,16 @@ def localize_candidates_resident(
         localize_newton_resident,
     )
 
-    k = layer.shape[0]
-    chunk = chunk_size(k, chunk)
-    n_rows = live_chunk_bound(cand_valid, chunk) * chunk
-    live = cand_valid[:n_rows]
+    k = layer.shape[-1]
+    n_rows, own = live_rows(cand_valid, chunk_size(k, chunk))
+    live = cand_valid[..., :n_rows]
+    (l, yy, xx, v), img = batch_rows(
+        dog, layer[..., :n_rows], y[..., :n_rows], x[..., :n_rows], live)
     outi, outf = localize_newton_resident(
-        dog, layer[:n_rows], y[:n_rows], x[:n_rows], live,
-        cfg.image_border_width, cfg.num_intervals, cfg.max_localize_iters,
+        dog, l, yy, xx, v, cfg.image_border_width, cfg.num_intervals,
+        cfg.max_localize_iters, img=img,
     )
-    loc = _finalize_localized(state_from_lanes(outi, outf), live, octave, cfg)
-    return zero_pad_rows(loc, k)
+    st = {name: f.reshape(live.shape)
+          for name, f in state_from_lanes(outi, outf).items()}
+    loc = _finalize_localized(st, live, octave, cfg)
+    return finish_rows(loc, own, k)

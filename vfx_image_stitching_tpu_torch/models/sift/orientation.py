@@ -16,9 +16,10 @@ import torch
 
 from vfx_image_stitching_tpu_torch.config import SiftConfig
 from vfx_image_stitching_tpu_torch.models.sift.chunking import (
+    batch_rows,
     chunk_size,
-    live_chunk_bound,
-    zero_pad_rows,
+    finish_rows,
+    live_rows,
 )
 from vfx_image_stitching_tpu_torch.models.sift.kernels import (
     orientation_histograms,
@@ -61,12 +62,25 @@ def assign_orientations(
     emission order.  ``layer_base`` re-bases the gradient-stack plane
     index: the pipeline passes 3-level stacks holding layers
     1..num_intervals (layer_base=1).
+
+    (N, L, H, W) stacks take (N, K) candidates and give (N, K *
+    max_orientations) keypoints: the stacks are read as one (N*L, H, W)
+    stack, each row at its own image's planes, so one kernel launch bins
+    every image's windows.
     """
     nb = cfg.num_bins
+    lead = loc.x.shape[:-1]
+    n_layers = mag_stack.shape[-3]
+    fields, img = batch_rows(mag_stack, *loc)
+    loc = Localized(*fields)
     k = loc.x.shape[0]
     lyr, cy, cx, radius, weight_factor = orientation_inputs(
-        loc, octave, cfg, mag_stack.shape[-3], layer_base
+        loc, octave, cfg, n_layers, layer_base
     )
+    if img is not None:
+        lyr = lyr + img * n_layers
+        mag_stack = mag_stack.reshape((-1,) + mag_stack.shape[-2:])
+        ang_stack = ang_stack.reshape((-1,) + ang_stack.shape[-2:])
     # as the JAX package: VFX_ORIENT_V2 other than "1" selects the v1
     # histogram kernel's counterpart (same function, another kernel)
     hist = (
@@ -113,16 +127,16 @@ def assign_orientations(
                         torch.zeros_like(angle), angle)
 
     def expand(f):
-        return f[:, None].expand(k, p_cap).reshape(-1)
+        return f[:, None].expand(k, p_cap).reshape(lead + (-1,))
 
     return Keypoints(
         x=expand(loc.pt_x),
         y=expand(loc.pt_y),
         size=expand(loc.size),
-        angle=angle.reshape(-1),
+        angle=angle.reshape(lead + (-1,)),
         response=expand(loc.response),
         octave=expand(loc.octave_packed),
-        valid=(peak_valid & loc.valid[:, None]).reshape(-1),
+        valid=(peak_valid & loc.valid[:, None]).reshape(lead + (-1,)),
         ix=expand(loc.x),
         iy=expand(loc.y),
         jx=expand(loc.jx),
@@ -144,14 +158,14 @@ def assign_orientations_chunked(
 
     The live chunks run as one batch (rows are independent); the rows of
     chunks without a valid candidate come out all-zero and invalid, in
-    the same candidate-major emission order as the JAX package.
+    the same candidate-major emission order as the JAX package.  A batch
+    of images runs to the batch's bound, in one launch.
     """
-    k = loc.x.shape[0]
+    k = loc.x.shape[-1]
     p_cap = cfg.capacities.max_orientations
-    chunk = chunk_size(k, chunk)
-    n_rows = live_chunk_bound(loc.valid, chunk) * chunk
+    n_rows, own = live_rows(loc.valid, chunk_size(k, chunk))
     kps = assign_orientations(
-        mag_stack, ang_stack, Localized(*[f[:n_rows] for f in loc]),
+        mag_stack, ang_stack, Localized(*[f[..., :n_rows] for f in loc]),
         octave, cfg, layer_base=layer_base,
     )
-    return zero_pad_rows(kps, k * p_cap)
+    return finish_rows(kps, None if own is None else own * p_cap, k * p_cap)

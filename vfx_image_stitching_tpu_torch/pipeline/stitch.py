@@ -25,6 +25,7 @@ matmuls and cuDNN: the match distances are exact only in full f32
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import List, Optional, Sequence, Tuple
@@ -341,7 +342,9 @@ def extract_features(cyl: torch.Tensor, cfg: StitchConfig):
     BGR batch: Harris on the BGR images, SIFT on their gray.
 
     Returns ``(xy, descs, valid_kp, meta, stats)``; ``meta``/``stats``
-    are ``None`` for the Harris backend.
+    are ``None`` for the Harris backend.  ``VFX_SIFT_BATCH_MODE`` picks
+    the SIFT schedule, as in the JAX package: ``map`` (the default) or
+    ``vmap`` (see ``models.sift.extract.sift_batch``).
     """
     if cfg.backend == "harris":
         xy, descs, valid_kp = harris_batch(cyl, cfg.harris)
@@ -352,7 +355,8 @@ def extract_features(cyl: torch.Tensor, cfg: StitchConfig):
         sift_batch_with_stats,
     )
 
-    return sift_batch_with_stats(bgr_to_gray_f32(cyl), cfg.sift)
+    mode = os.environ.get("VFX_SIFT_BATCH_MODE", "map")
+    return sift_batch_with_stats(bgr_to_gray_f32(cyl), cfg.sift, mode)
 
 
 def compute_pairwise_shifts(
