@@ -63,7 +63,15 @@ chain's first 4 images, with step files and a profiler trace).  Then the last mo
 the visible cards and on a (2, 2) mesh of four logical slots of
 ``cuda:0``, equal to ``multi``'s unsharded run, and
 ``sharded_pairwise_shifts`` on 3 logical slots equal to the unsharded
-step on every leaf), ``viz`` (both headless renderers on the chain's
+step on every leaf), ``mesh_vmap`` (``sharded_multi_pano_full`` on the
+``multi`` folders' 2 x 18 x 384x512 group over the same two meshes in
+three schedules, in turns: ``shard_map`` in the map and in the batched
+SIFT schedule, and ``mode="vmap"``, which extracts all of a slot's
+panoramas in one batched pass and matches all their pairs in one pair
+step: every SIFT and Harris leaf equal across them, walls, launches,
+host syncs, peak memory, one profiled call each on the pano mesh;
+``sharded_multi_pano_shifts`` equal to the per-panorama minimal step;
+K1-K4 on the inputs the 36-image batch gave them), ``viz`` (both headless renderers on the chain's
 first two images, their panel inputs against a CPU run) and
 ``probe_fused`` (the localize probe's ``fused`` phase: plain against
 resident localization on every octave of a 6-image group, ms per image
@@ -96,7 +104,9 @@ from vfx_image_stitching_tpu_torch.utils.synthetic import (
     synth_chain,
 )
 from vfx_image_stitching_tpu_torch.utils.timing import (
+    cuda_events_ms,
     cuda_ms,
+    device_events,
     device_profile,
     one_kernel_ms,
 )
@@ -154,6 +164,9 @@ PATHS = {
     # the SIFT stitch in the batched schedule (VFX_SIFT_BATCH_MODE=vmap)
     "batch_vmap": ("localize_newton_resident", "orientation_histograms",
                    "pair_window_gather"),
+    # sharded_multi_pano_full over meshes in its three schedules
+    "mesh_vmap": ("localize_newton_resident", "orientation_histograms",
+                  "pair_window_gather"),
 }
 KERNEL_PATH = {k: p for p, ks in reversed(PATHS.items()) for k in ks}
 # float operations of the descriptor-histogram kernel per masked sample:
@@ -994,23 +1007,23 @@ def profile_stitch(folder: str, median_s: float, backend: str = "sift") -> dict:
         t0 = time.time()
         run_stitch(folder, "cuda", backend)
         wall_s = time.time() - t0
-    dev_events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    if not dev_events:
+    events = device_events(prof)
+    if not events:
         raise AssertionError("the profiler recorded no device kernel")
-    busy_s = sum(e.self_device_time_total for e in dev_events) / 1e6
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+    busy_s = sum(us for _n, us in events) / 1e6
+    by_name = {}
+    for name, us in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return dict(
         phase="profile", backend=backend, device_busy_s=busy_s,
         unprofiled_median_s=median_s,
         device_idle_share=1 - busy_s / median_s,
         profiled_wall_s=wall_s,
         device_idle_share_of_profiled_wall=1 - busy_s / wall_s,
-        device_kernels=sum(e.count for e in dev_events),
-        top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3,
-                  count=e.count) for e in top],
+        device_kernels=len(events),
+        top=[dict(name=name[:80], ms=t / 1e3, count=n) for name, (n, t) in top],
     )
 
 
@@ -1121,10 +1134,39 @@ def batch_kernels(calls: dict, cfg) -> dict:
     bit against their plain versions, K2 and K4 within the orientation
     contract (rtol 2e-5, atol 2e-3) and bit for bit against launches of
     the same kernel on each image's rows alone; one device kernel a call;
-    times beside the plain versions' and the bounds."""
+    times beside the plain versions', K3's beside one advanced-indexing
+    call giving both windows (``library_ms``), and the bounds.  Each row's
+    ``timed_by`` says whether its times came from the profiler or, where
+    the profiler had stopped recording device time, from CUDA events."""
     import torch
 
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+
+    profiler_ok = [True]
+
+    def timed_ms(fn, how: set, counter: str = "", reps: int = 20) -> float:
+        # one_kernel_ms (a kernel's counter given) or cuda_ms; where deep
+        # into a run the profiler records the launches but no device time
+        # even after its retries, cuda_events_ms for this and every later
+        # timing of the call, a counter's launches checked to rise by one
+        # a call; ``how`` gets "profiler" or "cuda_events"
+        if profiler_ok[0]:
+            try:
+                ms = (one_kernel_ms(fn, counter, reps) if counter
+                      else cuda_ms(fn, reps=reps))
+                how.add("profiler")
+                return ms
+            except RuntimeError as err:
+                if "no device time" not in str(err):
+                    raise
+                profiler_ok[0] = False
+        n0 = K.LAUNCHES[counter] if counter else 0
+        ms = cuda_events_ms(fn, reps=reps, warmup=3)
+        if counter and K.LAUNCHES[counter] - n0 != reps + 3:
+            raise AssertionError(f"{counter}: {K.LAUNCHES[counter] - n0} launches "
+                                 f"in {reps + 3} calls")
+        how.add("cuda_events")
+        return ms
 
     out = {}
     args, kw = calls["localize_newton_resident"]
@@ -1138,13 +1180,14 @@ def batch_kernels(calls: dict, cfg) -> dict:
     n_k = layer.shape[0]
     b, by = bound_ms(n_k * (4 * 4 + 1) + cube_values * 4 + n_k * (8 + 13) * 4,
                      iters * 122)
+    how = set()
     out["localize_newton_resident"] = dict(
         rows=n_k, images=int(dog.shape[0]), valid=int(cv.sum()),
         newton_steps=iters, max_abs_err=0.0,
-        ms=one_kernel_ms(lambda: K.localize_newton_resident(*args, **kw),
-                         "localize_newton_resident"),
-        plain_ms=cuda_ms(lambda: K.localize_newton_plain(*args, **kw), reps=5),
-        bound_ms=b, bound_by=by)
+        ms=timed_ms(lambda: K.localize_newton_resident(*args, **kw), how,
+                    "localize_newton_resident"),
+        plain_ms=timed_ms(lambda: K.localize_newton_plain(*args, **kw), how, reps=5),
+        bound_ms=b, bound_by=by, timed_by=sorted(how))
 
     k2_args = calls["orientation_histograms"][0]
     mag, ang, lyr = k2_args[:3]
@@ -1153,7 +1196,9 @@ def batch_kernels(calls: dict, cfg) -> dict:
     per = k2_args[2].shape[0] // n_img
     b, by, samples, distinct = orientation_bound(k2_args)
     want = K.orientation_histograms_plain(*k2_args)
-    plain_ms = cuda_ms(lambda: K.orientation_histograms_plain(*k2_args), reps=5)
+    plain_how = set()
+    plain_ms = timed_ms(lambda: K.orientation_histograms_plain(*k2_args), plain_how,
+                        reps=5)
     stacks = (mag.view(n_img, n_l, *mag.shape[-2:]),
               ang.view(n_img, n_l, *ang.shape[-2:]))
     for name, fn in (("orientation_histograms", K.orientation_histograms),
@@ -1166,14 +1211,15 @@ def batch_kernels(calls: dict, cfg) -> dict:
                        *(t[rows] for t in k2_args[3:8]), *k2_args[8:])
             if not torch.equal(got[rows], alone):
                 raise AssertionError(f"{name}: the batch's rows differ from image {i}'s")
+        how = set(plain_how)
+        ms = timed_ms(lambda: fn(*k2_args), how, name)
         out[name] = dict(
             rows=int(lyr.shape[0]), images=n_img, valid=int(k2_args[7].sum()),
             masked_samples=samples, distinct_pixels=distinct,
             max_abs_err=float((got - want).abs().max()),
-            ms=one_kernel_ms(lambda: fn(*k2_args), name), plain_ms=plain_ms,
-            bound_ms=b, bound_by=by)
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, timed_by=sorted(how))
 
-    k3, n_bytes = {}, 0
+    k3, n_bytes, how = {}, 0, set()
     for (_n, half_cap), (args3, _kw) in sorted(
             (k, v) for k, v in calls.items() if k[0] == "pair_window_gather"):
         got = K.pair_window_gather(*args3)
@@ -1182,12 +1228,21 @@ def batch_kernels(calls: dict, cfg) -> dict:
             raise AssertionError(f"K3 half {half_cap}: differs on the batch")
         s = 2 * half_cap + 1
         n_bytes += window_bytes(args3, want)
+        # one advanced-indexing call giving both windows, as in
+        # check_kernels
+        ma = torch.stack(args3[:2], dim=-1)
+        r_idx = (want[2][:, None] + torch.arange(s, device=ma.device)).long()
+        c_idx = (want[3][:, None] + torch.arange(s, device=ma.device)).long()
+        l_idx = args3[2].long()[:, None, None]
         k3[f"{s}x{s}"] = dict(
             rows=int(args3[2].shape[0]),
             load=K.pair_window_load(args3[0].contiguous(), args3[1].contiguous(), s),
-            ms=one_kernel_ms(lambda: K.pair_window_gather(*args3),
-                             "pair_window_gather"),
-            plain_ms=cuda_ms(lambda: K.pair_window_gather_plain(*args3), reps=5))
+            ms=timed_ms(lambda: K.pair_window_gather(*args3), how,
+                        "pair_window_gather"),
+            plain_ms=timed_ms(lambda: K.pair_window_gather_plain(*args3), how, reps=5),
+            library_ms=timed_ms(lambda: ma[l_idx, r_idx[:, :, None],
+                                           c_idx[:, None, :]], how, reps=5))
+        del ma
     if len(k3) != 2:
         raise AssertionError(f"K3 ran for {sorted(k3)} windows, not both buckets")
     b, by = bound_ms(n_bytes, 0.0)
@@ -1195,7 +1250,8 @@ def batch_kernels(calls: dict, cfg) -> dict:
         rows=sum(v["rows"] for v in k3.values()), images=n_img, max_abs_err=0.0,
         ms=sum(v["ms"] for v in k3.values()),
         plain_ms=sum(v["plain_ms"] for v in k3.values()),
-        bound_ms=b, bound_by=by, buckets=k3)
+        library_ms=sum(v["library_ms"] for v in k3.values()),
+        bound_ms=b, bound_by=by, buckets=k3, timed_by=sorted(how))
     return out
 
 
@@ -1777,6 +1833,195 @@ def mesh(folder: str, multi_out: dict, folders: list, unsharded: dict) -> dict:
     return out
 
 
+# the mesh_vmap phase's three schedules of sharded_multi_pano_full:
+# (mode, VFX_SIFT_BATCH_MODE)
+MESH_SCHEDULES = {"shard_map": ("shard_map", "map"),
+                  "shard_map_env_vmap": ("shard_map", "vmap"),
+                  "vmap": ("vmap", "map")}
+
+
+def mesh_vmap(folders: list, timed_runs: int = 2) -> dict:
+    """The batched multi-panorama steps (``parallel/mesh.py``) on the card,
+    on the ``multi`` folders' same-shape group (parrington and grail, 2 x
+    18 x 384x512), over ``make_mesh_pano()`` (one slot per visible card)
+    and a (2, 2) mesh of four logical slots of ``cuda:0``.  Three
+    schedules of ``sharded_multi_pano_full`` (``MESH_SCHEDULES``) on each
+    mesh, in turns: a warm-up (its host syncs and peak memory), then
+    ``timed_runs`` each (the first with the launch counts at 0: K1-K3 and
+    no other kernel; ``mode="vmap"`` at most once an octave for each
+    slot's batch, K3 once a bucket).  Every SIFT leaf equal across the
+    three schedules and both meshes, every Harris leaf too (no kernel
+    launched); ``sharded_multi_pano_shifts`` equal to the per-panorama
+    ``_pairwise_shift_step`` for both backends; K1-K4 on the inputs the
+    36-image batched extraction gave them (``batch_kernels``; that
+    extraction's ``xy`` equal to the mesh's); one profiled call of each
+    schedule on the pano mesh (device time and kernels, idle share of the
+    median wall).  The phase's line is printed even when a check fails."""
+    import time
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.geometry.cylindrical import (
+        cylindrical_project_batch,
+    )
+    from vfx_image_stitching_tpu_torch.io import load_dataset, stack_dataset
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_f32
+    from vfx_image_stitching_tpu_torch.parallel import mesh as M
+
+    t_phase = time.time()
+    cyls = []
+    for f in folders:
+        if os.path.basename(f) in ("parrington", "grail"):
+            images, focals, _ = load_dataset(f)
+            batch, _valid = stack_dataset(images)
+            cyls.append(cylindrical_project_batch(
+                torch.as_tensor(batch).cuda(), [float(x) for x in focals]))
+    batch = torch.stack(cyls)
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"pano_cards": M.make_mesh_pano(),
+              "logical_2x2": M.make_mesh_2d(devices=[cuda0] * 4)}
+    sift, harris = StitchConfig(backend="sift"), StitchConfig(backend="harris")
+    out = dict(phase="mesh_vmap", batch=list(batch.shape[:4]), part_s={})
+
+    def leaves(tree):
+        found = []
+        M._tree_map(found.append, tree)
+        return found
+
+    def differing(a, b):
+        la, lb = leaves(a), leaves(b)
+        if len(la) != len(lb):
+            return ["leaf count"]
+        return [i for i, (x, y) in enumerate(zip(la, lb)) if not torch.equal(x, y)]
+
+    def run(grid, schedule, cfg):
+        mode, env = MESH_SCHEDULES[schedule]
+        with mock.patch.dict(os.environ, VFX_SIFT_BATCH_MODE=env):
+            res = M.sharded_multi_pano_full(batch, grid, cfg, mode=mode)
+        torch.cuda.synchronize()
+        return res
+
+    def part(name, t0):
+        out["part_s"][name] = time.time() - t0
+
+    try:
+        first = None
+        for name, grid in meshes.items():
+            t0 = time.time()
+            slots = len(grid.slots)
+            rec = {s: dict(runs_s=[]) for s in MESH_SCHEDULES}
+            outs = {}
+            for i in range(1 + timed_runs):
+                order = list(MESH_SCHEDULES)
+                for s in (order if i % 2 == 0 else order[::-1]):
+                    if i == 0:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated()
+                        t1 = time.time()
+                        rec[s]["host_syncs"] = host_syncs(
+                            lambda: outs.__setitem__(s, run(grid, s, sift)))
+                        rec[s]["warm_up_s"] = time.time() - t1
+                        rec[s]["peak_mb"] = (
+                            torch.cuda.max_memory_allocated() - base) / 2**20
+                        continue
+                    if i == 1:
+                        K.reset_launch_counts()
+                    t1 = time.time()
+                    run(grid, s, sift)
+                    rec[s]["runs_s"].append(time.time() - t1)
+                    if i == 1:
+                        launches = dict(K.LAUNCHES)
+                        rec[s]["launches"] = {k: v for k, v in launches.items() if v}
+                        check_launches("mesh_vmap", launches)
+            if first is None:
+                first = outs["shard_map"]
+            octaves = int(outs["vmap"][3]["cand_caps"].shape[-1])
+            for s in MESH_SCHEDULES:
+                rec[s]["median_s"] = _median(rec[s]["runs_s"])
+                rec[s]["differs_from_shard_map"] = differing(outs[s], outs["shard_map"])
+                rec[s]["differs_from_pano_cards"] = differing(outs[s], first)
+            vl = rec["vmap"]["launches"]
+            once = (vl.get("localize_newton_resident", 0) <= slots * octaves
+                    and vl.get("orientation_histograms", 0) <= slots * octaves
+                    and vl.get("pair_window_gather", 0) <= 2 * slots * octaves)
+            del outs
+            # Harris: plain tensor ops, no kernel
+            h_outs = {}
+            for s in MESH_SCHEDULES:
+                K.reset_launch_counts()
+                h_outs[s] = run(grid, s, harris)
+                check_launches("harris", dict(K.LAUNCHES))
+            h_diff = {s: differing(h_outs[s], h_outs["shard_map"])
+                      for s in MESH_SCHEDULES}
+            out[name] = dict(shape=list(grid.devices.shape), octaves=octaves,
+                             once_an_octave_per_slot=once, sift=rec,
+                             harris_differs=h_diff)
+            part(name, t0)
+            if not once or any(rec[s]["differs_from_shard_map"]
+                               or rec[s]["differs_from_pano_cards"]
+                               for s in rec) or any(h_diff.values()):
+                raise AssertionError(f"mesh_vmap {name}: the schedules differ or "
+                                     f"vmap launched per panorama")
+
+        # sharded_multi_pano_shifts against the per-panorama minimal step
+        t0 = time.time()
+        shifts = {}
+        for backend, cfg in (("sift", sift), ("harris", harris)):
+            want = M._tree_map(lambda *xs: torch.stack(xs),
+                               *(M._pairwise_shift_step(b, cfg) for b in batch))
+            for name, grid in meshes.items():
+                got = M.sharded_multi_pano_shifts(batch, grid, cfg)
+                torch.cuda.synchronize()
+                shifts[f"{backend}_{name}"] = differing(got, want)
+            shifts[f"{backend}_pairs_matched"] = int(want[3].sum())
+        out["multi_pano_shifts_differ"] = shifts
+        part("multi_pano_shifts", t0)
+        if any(v for k, v in shifts.items() if not k.endswith("matched")):
+            raise AssertionError(f"sharded_multi_pano_shifts differs: {shifts}")
+
+        # K1-K4 on the inputs the 36-image batched extraction gave them
+        t0 = time.time()
+        (xy36, *_rest), calls = recorded_extraction(
+            bgr_to_gray_f32(batch.flatten(0, 1)), sift.sift, "vmap")
+        del _rest
+        if differing(xy36, first[0].flatten(0, 1)):
+            raise AssertionError("the recorded extraction differs from the mesh's")
+        out["kernels"] = batch_kernels(calls, sift.sift)
+        del calls
+        part("kernels", t0)
+
+        # one profiled call of each schedule on the pano mesh (device
+        # events only); a trace is complete when it holds every K1-K3
+        # launch the call counted
+        t0 = time.time()
+        grid = meshes["pano_cards"]
+        prof = {}
+        for s in MESH_SCHEDULES:
+            K.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as session:
+                run(grid, s, sift)
+            events = device_events(session)
+            ours = sum(1 for name, _us in events
+                       if any(k in name for k in ("localize_newton_kernel",
+                                                  "orientation_kernel", "pair_gather")))
+            busy = sum(us for _n, us in events) / 1e6
+            median = out["pano_cards"]["sift"][s]["median_s"]
+            prof[s] = dict(device_busy_s=busy, device_idle_share=1 - busy / median,
+                           device_kernels=len(events),
+                           complete=ours == sum(K.LAUNCHES[k] for k in PATHS["mesh_vmap"]))
+        out["profile_pano_cards"] = prof
+        part("profile", t0)
+    finally:
+        out["seconds"] = time.time() - t_phase
+        emit(out)
+    return out
+
+
 VIZ_PANELS = ("1_base_image.png", "2_gaussian_pyramid.png", "3_dog_pyramid.png",
               "4_keypoints.png", "5_descriptor.png", "6_matching.png")
 
@@ -2222,6 +2467,7 @@ def main() -> int:
         stage_api(folder, work, refs)
         multi_out, folders, sift_many = multi(work, folder)
         mesh(folder, multi_out, folders, sift_many)
+        mvmap = mesh_vmap(folders)
         api_surface(folder, refs, inp["counts"])
         chain4, chain4_ref = e2e.pop("chain4")
         cli(chain4, work, chain4_ref)
@@ -2239,9 +2485,15 @@ def main() -> int:
             # the batched schedule's launch: every image's rows at once
             row["batch"] = dict(
                 {k: v for k, v in batch["kernels"][row["name"]].items()
-                 if k in ("rows", "images", "ms", "plain_ms", "bound_ms",
-                          "bound_by", "max_abs_err")},
+                 if k in ("rows", "images", "ms", "timed_by", "plain_ms",
+                          "bound_ms", "bound_by", "library_ms", "max_abs_err")},
                 launches=batch["stitch"]["launches"]["vmap"].get(row["name"], 0))
+        if row["name"] in mvmap["kernels"]:
+            # the same on the 36 images of two panoramas (mesh_vmap)
+            row["batch_36"] = {
+                k: v for k, v in mvmap["kernels"][row["name"]].items()
+                if k in ("rows", "images", "ms", "timed_by", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "max_abs_err")}
     emit(dict(phase="total", seconds=time.time() - t_start))
     print(smi)
     emit(dict(kernels=rows))

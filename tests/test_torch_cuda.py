@@ -23,7 +23,11 @@ tensor ops) on the card byte-equal to the host fold, steps and crop
 bounds included; both compose routes, the step capture and the stage
 API equal to the CPU's stitch for both backends; ``stitch_many`` equal to
 the loop of ``stitch_panorama``.  The mesh layer on two logical slots of
-the card equal to the unsharded step and ``stitch_many``; the
+the card equal to the unsharded step and ``stitch_many``, and its batched
+multi-panorama steps (``mode="vmap"``, ``sharded_multi_pano_shifts``)
+equal to ``shard_map`` and the per-panorama step on logical slots, with
+one extraction and one pair step a slot and K1-K3 once an octave (a
+bucket) for the slot's whole batch; the
 visualizers' ``compute_stages`` and ``harris_match_pair`` on the card
 against the CPU; the localize probe's ``fused`` phase, ``plain`` equal to
 ``resident`` with K1 the only kernel launched.  The matcher's Lowe ratio
@@ -986,3 +990,87 @@ def test_vmap_extraction_and_stitch_on_cuda_match_map(dev, tmp_path, monkeypatch
     assert out["map"].shifts == out["vmap"].shifts
     assert out["map"].pairs == out["vmap"].pairs
     assert np.array_equal(out["map"].panorama, out["vmap"].panorama)
+
+
+# ---------------------------------------------------------------------------
+# the batched multi-panorama steps (parallel/mesh.py, mode="vmap")
+# ---------------------------------------------------------------------------
+
+def _pano_batch(dev, p: int = 3, n: int = 3):
+    """(p, n, 128, 168, 3) uint8 on ``dev``: p synthetic chains, 40 px
+    apart, the second chain's middle image nearly blank (one blob)."""
+    from vfx_image_stitching_tpu_torch.utils.synthetic import make_scene
+
+    panos = []
+    for s in range(p):
+        scene = make_scene(128, 168 + (n - 1) * 40, 3 + s, block_px=60,
+                           block_size=(2, 6))
+        panos.append(np.stack([scene[:, 40 * i:40 * i + 168] for i in range(n)]))
+    batch = np.stack(panos)
+    batch[1, n // 2] = 90
+    batch[1, n // 2, 60:68, 80:90] = 200
+    return torch.as_tensor(batch, device=dev)
+
+
+@pytest.mark.parametrize("backend", ["harris", "sift"])
+def test_batched_multi_pano_on_cuda_matches_shard_map(dev, backend):
+    """On logical slots of the card (the (2, 2) mesh, P=3 uneven over its
+    rows, and a 2-slot pano mesh), ``mode="vmap"`` equals ``shard_map`` on
+    every leaf, and ``sharded_multi_pano_shifts`` equals the stack of the
+    per-panorama minimal steps."""
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.parallel import mesh as M
+
+    batch, cfg = _pano_batch(dev), StitchConfig(backend=backend)
+    want_min = M._tree_map(lambda *xs: torch.stack(xs),
+                           *(M._pairwise_shift_step(b, cfg) for b in batch))
+    assert bool(want_min[3][0].all())
+    for mesh in (M.make_mesh_2d(devices=[dev] * 4),
+                 M.make_mesh_pano(devices=[dev] * 2)):
+        got, want = (M.sharded_multi_pano_full(batch, mesh, cfg, mode=m)
+                     for m in ("vmap", "shard_map"))
+        g, w = [], []
+        M._tree_map(g.append, got)
+        M._tree_map(w.append, want)
+        assert len(g) == len(w) and all(torch.equal(a, b) for a, b in zip(g, w))
+        shifts = M.sharded_multi_pano_shifts(batch, mesh, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(shifts, want_min))
+
+
+def test_batched_multi_pano_on_cuda_launches_once_per_slot(dev, monkeypatch):
+    """One slot holding 3 panoramas: ``mode="vmap"`` makes one extraction
+    and one pair-step call and launches K1 and K2 at most once an octave
+    and K3 at most twice (a bucket each) for the whole batch, where
+    ``shard_map`` launches per panorama."""
+    from vfx_image_stitching_tpu_torch.config import StitchConfig
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.parallel import mesh as M
+
+    monkeypatch.delenv("VFX_SIFT_BATCH_MODE", raising=False)
+    batch, cfg = _pano_batch(dev), StitchConfig(backend="sift")
+    mesh = M.make_mesh_pano(devices=[dev])
+    calls = []
+
+    def count(name, fn):
+        def wrapped(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(M, "_extract", count("extract", M._extract))
+    monkeypatch.setattr(M, "_pair_shift", count("pairs", M._pair_shift))
+    launches = {}
+    for mode in ("vmap", "shard_map"):
+        calls.clear()
+        K.reset_launch_counts()
+        out = M.sharded_multi_pano_full(batch, mesh, cfg, mode=mode)
+        torch.cuda.synchronize()
+        launches[mode] = dict(K.LAUNCHES)
+        per = 1 if mode == "vmap" else batch.shape[0]
+        assert sorted(calls) == ["extract"] * per + ["pairs"] * per
+    octaves = out[3]["cand_caps"].shape[-1]
+    v, s = launches["vmap"], launches["shard_map"]
+    assert 0 < v["localize_newton_resident"] <= octaves
+    assert 0 < v["orientation_histograms"] <= octaves
+    assert 0 < v["pair_window_gather"] <= 2 * octaves
+    assert s["localize_newton_resident"] > v["localize_newton_resident"]

@@ -19,10 +19,15 @@ shards differ by at most one image (slots past the N-th get none), which
 gives the same outputs without extracting blank images.
 
 Pano axis (:func:`sharded_multi_pano_full`): whole panoramas per slot of
-the first mesh axis, each slot's panoramas one after another; on a 2-D
-mesh each panorama's images are sharded over that slot's row as above.
-The reference pads P to the pano axis with blank panoramas whose outputs
-it trims; here those are never computed.
+the first mesh axis; on a 2-D mesh each panorama's images are sharded
+over that slot's row as above.  ``mode="shard_map"`` (the default) runs
+a slot's panoramas one after another; ``mode="vmap"``, and always
+:func:`sharded_multi_pano_shifts`, runs them as one batch: each slot of
+the row extracts its shard of every panorama in one pass, takes the
+first image of each panorama's next shard in one halo, and matches all
+their local pairs in one pair step.  The reference pads P to the pano
+axis with blank panoramas whose outputs it trims; here those are never
+computed.
 
 Tensors cross slots only through :func:`_handoff`: the consumer's stream
 waits for the producer's, and a tensor read on another stream of its own
@@ -30,8 +35,9 @@ device is recorded on that stream, so the caching allocator cannot reuse
 its memory while the read is in flight.  Every function returns tensors
 on the first slot's device, ready on the calling thread's current stream.
 
-Sharded outputs equal the unsharded step's bit for bit: extraction runs
-image by image, and the pair step is per pair, with the matcher's
+Sharded and batched outputs equal the unsharded per-panorama step's bit
+for bit: extraction is per image in either SIFT schedule, and the pair
+step is per pair, with the matcher's
 distances exact for SIFT's integer descriptors and re-checked exactly for
 Harris's (``refine``).  Which layout pays on TPUs the JAX module's
 docstring records; no scaling figure is claimed here.
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from vfx_image_stitching_tpu_torch.config import StitchConfig
+from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_f32
 from vfx_image_stitching_tpu_torch.pipeline.stitch import (
     _pair_shift,
     extract_features,
@@ -232,16 +239,60 @@ def _move(tree, src: _Slot, dst: _Slot):
     return _tree_map(lambda _t: next(moved), tree)
 
 
+def _extract(cyl: torch.Tensor, cfg: StitchConfig, batched: bool):
+    """``pipeline.stitch.extract_features`` of a (P, N, H, W, 3) batch in
+    one call over its P*N images, every leaf reshaped to (P, N, ...).
+
+    ``batched`` runs SIFT in the batched schedule (``mode="vmap"``)
+    whatever ``VFX_SIFT_BATCH_MODE`` says: flattening the panoramas into
+    one batch is the port's form of the JAX package's vmap over them, and
+    the port's two schedules give the same bits.  Harris takes any
+    leading image axis as it is.
+    """
+    flat = cyl.flatten(0, 1)
+    if batched and cfg.backend == "sift":
+        from vfx_image_stitching_tpu_torch.models.sift.extract import (
+            sift_batch_with_stats,
+        )
+
+        feats = sift_batch_with_stats(bgr_to_gray_f32(flat), cfg.sift, "vmap")
+    else:
+        feats = extract_features(flat, cfg)
+    return _tree_map(lambda t: t.unflatten(0, cyl.shape[:2]), feats)
+
+
 def _pairs(xy, descs, valid, cfg: StitchConfig, margin: float):
-    """The pair step over the adjacent pairs of the features' leading axis.
-    The match distances are exact only in full f32: TF32 stays off."""
+    """The pair step over the adjacent pairs of every panorama of (P, N,
+    ...) features: all P*(N-1) pairs in one ``_pair_shift`` call, none
+    across panoramas; its 15 leaves reshaped to (P, N-1, ...).  The match
+    distances are exact only in full f32: TF32 stays off."""
     torch.backends.cuda.matmul.allow_tf32 = False
     mcfg = cfg.match()
-    return _pair_shift(
-        xy[:-1], descs[:-1], valid[:-1], xy[1:], descs[1:], valid[1:],
+    feats = (xy, descs, valid)
+    out = _pair_shift(
+        *(t[:, :-1].flatten(0, 1) for t in feats),
+        *(t[:, 1:].flatten(0, 1) for t in feats),
         desc_thresh=mcfg.desc_thresh, ransac_thresh=mcfg.ransac_thresh,
         refine=mcfg.refine, margin=margin,
     )
+    p, n = xy.shape[:2]
+    return _tree_map(lambda t: t.unflatten(0, (p, n - 1)), out)
+
+
+def _step(batch: torch.Tensor, cfg: StitchConfig, full: bool, batched: bool):
+    """A (P, N, H, W, 3) batch on one device: :func:`_extract`, then the
+    pair step over its P*(N-1) adjacent pairs, with ``margin`` 0 (the
+    minimal step's 15-tuple) or with ``full`` the live
+    ``cfg.match().borderline_margin`` (the full step's leaves); every
+    leaf with a leading P axis."""
+    xy, descs, valid, meta, stats = _extract(batch, cfg, batched)
+    margin = cfg.match().borderline_margin if full else 0.0
+    pair_out = _pairs(xy, descs, valid, cfg, margin)
+    return (xy, valid, meta, stats, pair_out) if full else pair_out
+
+
+def _first(tree):
+    return _tree_map(lambda t: t[0], tree)
 
 
 def _pairwise_shift_step(cyl: torch.Tensor, cfg: StitchConfig):
@@ -250,49 +301,61 @@ def _pairwise_shift_step(cyl: torch.Tensor, cfg: StitchConfig):
     so the escalation signals (border_flip, border_swap, material,
     max_inmargin) are zero.  Returns ``pipeline.stitch._pair_shift``'s
     15-tuple with a leading pair axis."""
-    xy, descs, valid, _meta, _stats = extract_features(cyl, cfg)
-    return _pairs(xy, descs, valid, cfg, 0.0)
+    return _first(_step(cyl[None], cfg, full=False, batched=False))
 
 
 def _full_shift_step(cyl: torch.Tensor, cfg: StitchConfig):
     """Pipeline-grade step: ``(xy, valid_kp, meta, stats, pair_out)``,
     everything ``pipeline.stitch.finalize_to_panorama`` needs, the pair
     step with the live ``cfg.match().borderline_margin``."""
-    xy, descs, valid, meta, stats = extract_features(cyl, cfg)
-    return xy, valid, meta, stats, _pairs(
-        xy, descs, valid, cfg, cfg.match().borderline_margin)
+    return _first(_step(cyl[None], cfg, full=True, batched=False))
 
 
 def _multi_pano_step(batch: torch.Tensor, cfg: StitchConfig):
-    """(P, N, H, W, 3) multi-panorama minimal step, one panorama after
-    another, every leaf stacked along a leading P axis."""
-    outs = [_pairwise_shift_step(b, cfg) for b in batch]
-    return _tree_map(lambda *xs: torch.stack(xs), *outs)
+    """(P, N, H, W, 3) multi-panorama minimal step, the counterpart of the
+    JAX vmap over panoramas: one batched extraction over all P*N images
+    and one pair step over all P*(N-1) pairs; every leaf equals the stack
+    of the per-panorama :func:`_pairwise_shift_step`."""
+    return _step(batch, cfg, full=False, batched=True)
 
 
-def _image_step(images: torch.Tensor, slots, cfg: StitchConfig, full: bool):
-    """One panorama's (N, H, W, 3) images sharded over ``slots``: the
-    minimal step's 15-tuple, or with ``full`` the full step's leaves, on
-    ``slots[0]``'s device and ready on the calling thread's stream."""
-    n = images.shape[0]
+def _multi_pano_full_step(batch: torch.Tensor, cfg: StitchConfig):
+    """(P, N, H, W, 3) multi-panorama full step, the counterpart of the
+    JAX vmap of ``_full_shift_step`` over panoramas: one batched
+    extraction and one pair step for all panoramas, every leaf equal to
+    the stack of the per-panorama :func:`_full_shift_step`."""
+    return _step(batch, cfg, full=True, batched=True)
+
+
+def _image_step(images: torch.Tensor, slots, cfg: StitchConfig, full: bool,
+                batched: bool):
+    """A (P, N, H, W, 3) batch with its image axis sharded over ``slots``:
+    each slot extracts its shard of every panorama in one
+    :func:`_extract` call, takes the first image of each panorama's shard
+    on the next slot in one halo handoff, and runs its local pairs, the
+    boundary pairs included, in one pair step.  Returns :func:`_step`'s
+    leaves on ``slots[0]``'s device, ready on the calling thread's
+    stream."""
+    n = images.shape[1]
     b = _bounds(n, len(slots))
-    slots = [s for k, s in enumerate(slots) if b[k + 1] > b[k]]
-    shards = _shards(images, slots)
+    used = [k for k in range(len(slots)) if b[k + 1] > b[k]]
+    slots = [slots[k] for k in used]
+    shards = [images[:, b[k]:b[k + 1]].to(s.device) for k, s in zip(used, slots)]
     made = {s.device: _current(s.device) for s in slots}
     margin = cfg.match().borderline_margin if full else 0.0
 
     def extract(i):
         cyl, = _handoff([shards[i]], made[slots[i].device], slots[i])
-        return extract_features(cyl, cfg)
+        return _extract(cyl, cfg, batched)
 
     feats = _run_slots(slots, extract)
 
     def pairs(i):
         local = feats[i][:3]
         if i + 1 < len(slots):
-            halo = _handoff([f[:1] for f in feats[i + 1][:3]], slots[i + 1],
+            halo = _handoff([f[:, :1] for f in feats[i + 1][:3]], slots[i + 1],
                             slots[i])
-            local = [torch.cat([a, h]) for a, h in zip(local, halo)]
+            local = [torch.cat([a, h], dim=1) for a, h in zip(local, halo)]
         return _pairs(*local, cfg, margin)
 
     pair_outs = _run_slots(slots, pairs)
@@ -300,7 +363,7 @@ def _image_step(images: torch.Tensor, slots, cfg: StitchConfig, full: bool):
 
     def gather(parts):
         moved = [_move(p, s, out) for p, s in zip(parts, slots)]
-        return _tree_map(lambda *xs: torch.cat(xs), *moved)
+        return _tree_map(lambda *xs: torch.cat(xs, dim=1), *moved)
 
     pair_out = gather(pair_outs)
     if not full:
@@ -309,9 +372,11 @@ def _image_step(images: torch.Tensor, slots, cfg: StitchConfig, full: bool):
     return xy, valid, meta, stats, pair_out
 
 
-def _grid_step(batch, mesh: Mesh, cfg: StitchConfig, full: bool):
+def _grid_step(batch, mesh: Mesh, cfg: StitchConfig, full: bool, batched: bool):
     """A (P, N, H, W, 3) batch over the mesh: contiguous panoramas per slot
-    of the first axis, each panorama's images over that slot's row."""
+    of the first axis, each panorama's images over that slot's row; with
+    ``batched`` a row runs all of its panoramas in one
+    :func:`_image_step`, else one panorama after another."""
     batch = torch.as_tensor(batch)
     n_rows = mesh.devices.shape[0]
     cols = len(mesh.slots) // n_rows
@@ -322,12 +387,13 @@ def _grid_step(batch, mesh: Mesh, cfg: StitchConfig, full: bool):
 
     def row_step(i):
         k = used[i]
-        row = rows[k]
+        parts = ([slice(b[k], b[k + 1])] if batched
+                 else [slice(q, q + 1) for q in range(b[k], b[k + 1])])
         outs = []
-        for q in range(b[k], b[k + 1]):
-            pano, = _handoff([batch[q]], made, row[0])
-            outs.append(_image_step(pano, row, cfg, full))
-        return _tree_map(lambda *xs: torch.stack(xs), *outs)
+        for q in parts:
+            panos, = _handoff([batch[q]], made, rows[k][0])
+            outs.append(_image_step(panos, rows[k], cfg, full, batched))
+        return _tree_map(lambda *xs: torch.cat(xs), *outs)
 
     heads = [rows[k][0] for k in used]
     row_outs = _run_slots(heads, row_step)
@@ -356,7 +422,8 @@ def sharded_pairwise_shifts(
     """
     cfg = cfg or StitchConfig(backend="harris")
     _check_axis(mesh, axis_name)
-    return _image_step(torch.as_tensor(batch), mesh.slots, cfg, full=False)
+    return _first(_image_step(torch.as_tensor(batch)[None], mesh.slots, cfg,
+                              full=False, batched=False))
 
 
 def sharded_multi_pano_full(
@@ -372,14 +439,20 @@ def sharded_multi_pano_full(
     leading P axis (``meta`` and ``stats`` are ``None`` for Harris), ready
     for ``pipeline.stitch.finalize_to_panorama`` per panorama.
 
-    ``mode`` is ``"shard_map"`` or ``"vmap"``: the reference's two
-    programs, which its tests pin bit-equal to each other; both run the
-    one implementation here.
+    ``mode`` is ``"shard_map"`` or ``"vmap"``, the reference's two
+    programs, bit-equal to each other.  ``"shard_map"`` (the default)
+    runs a row's panoramas one after another, each through
+    ``extract_features`` (whose schedule ``VFX_SIFT_BATCH_MODE`` picks)
+    and a pair step of its own.  ``"vmap"`` runs all of a row's
+    panoramas at once: each slot extracts its shard of every one of them
+    in one batched pass (SIFT in the batched schedule) and matches all
+    their local pairs in one pair step, as :func:`_multi_pano_full_step`
+    does on one device.
     """
     cfg = cfg or StitchConfig(backend="sift")
     if mode not in ("shard_map", "vmap"):
         raise ValueError(f"mode {mode!r}: expected 'shard_map' or 'vmap'")
-    return _grid_step(batch, mesh, cfg, full=True)
+    return _grid_step(batch, mesh, cfg, full=True, batched=mode == "vmap")
 
 
 def sharded_multi_pano_shifts(
@@ -389,6 +462,8 @@ def sharded_multi_pano_shifts(
 ):
     """The minimal step on a (P, N, H, W, 3) batch: data-parallel over
     panoramas on the first mesh axis, image-parallel within each on the
-    others.  Returns :func:`_multi_pano_step`'s leaves."""
+    others, each row's panoramas batched as in
+    ``sharded_multi_pano_full(mode="vmap")`` (the JAX step is always a
+    vmap over panoramas).  Returns :func:`_multi_pano_step`'s leaves."""
     cfg = cfg or StitchConfig(backend="harris")
-    return _grid_step(batch, mesh, cfg, full=False)
+    return _grid_step(batch, mesh, cfg, full=False, batched=True)

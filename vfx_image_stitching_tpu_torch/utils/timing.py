@@ -22,12 +22,26 @@ def kernel_profile(fn, reps: int = 20, warmup: int = 3,
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = {e.key: (e.count, e.self_device_time_total)
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        events = {}
+        for name, us in device_events(prof):
+            n, total = events.get(name, (0, 0.0))
+            events[name] = (n + 1, total + us)
         if sum(us for _n, us in events.values()) > 0:
             return events
     raise RuntimeError("the profiler recorded no device time")
+
+
+def device_events(prof) -> list:
+    """``(name, device us)`` of every device event (kernels, copies, sets)
+    of a finished ``torch.profiler`` session, read from its raw trace:
+    ``key_averages()`` takes minutes to build its tables on a trace of a
+    few hundred thousand kernels."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
 
 
 def device_profile(fn, reps: int = 20, warmup: int = 3, attempts: int = 6):
@@ -36,6 +50,26 @@ def device_profile(fn, reps: int = 20, warmup: int = 3, attempts: int = 6):
     events = kernel_profile(fn, reps, warmup, attempts).values()
     return (sum(us for _n, us in events) / reps / 1e3,
             sum(n for n, _us in events) / reps)
+
+
+def cuda_events_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Ms of one call of ``fn`` from CUDA events on the current stream
+    around ``reps`` calls in a row: the device's time where the host
+    enqueues the calls faster than the device runs them, else the host's
+    pace.  For where the profiler records no device time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
