@@ -1054,7 +1054,7 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
         phase="end_to_end", images=N_IMAGES, shape=[IMG_H, IMG_W],
         first_run_s=first_s, median_s=float(np.median(walls)), runs_s=walls,
         phases_s={k: v for k, v in median_run.timings.items()
-                  if k not in ("esc_n_pairs", "esc_n_rows", "passes")},
+                  if isinstance(v, float)},
         escalated_pairs=int(res.timings["esc_n_pairs"]),
         escalated_rows=int(res.timings["esc_n_rows"]),
         passes=int(res.timings["passes"]),
@@ -1340,7 +1340,7 @@ def batch_vmap(folder: str, e2e: dict, timed_runs: int = 3) -> dict:
     median = {m: _median(w) for m, w in walls.items()}
     # the phases of each schedule's median run
     phases = {m: {k: v for k, v in timings[m][int(np.argsort(w)[len(w) // 2])].items()
-                  if k not in ("esc_n_pairs", "esc_n_rows", "passes")}
+                  if isinstance(v, float)}
               for m, w in walls.items()}
     peak, syncs = {}, {}
     for mode in ("map", "vmap"):
@@ -1485,7 +1485,7 @@ def harris_stitch(folder: str, card: str, timed_runs: int = 3) -> dict:
         shape=[IMG_H, IMG_W], first_run_s=first_s, median_s=median_s,
         runs_s=walls,
         phases_s={k: v for k, v in median_run.timings.items()
-                  if k not in ("esc_n_pairs", "esc_n_rows", "passes")},
+                  if isinstance(v, float)},
         device_busy_s=prof["device_busy_s"],
         device_kernels=prof["device_kernels"],
         device_idle_share=prof["device_idle_share"],

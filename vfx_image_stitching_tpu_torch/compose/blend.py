@@ -31,6 +31,11 @@ import torch
 
 from vfx_image_stitching_tpu_torch.compose.plan import ComposePlan
 from vfx_image_stitching_tpu_torch.geometry.canvas import place_on_canvas
+from vfx_image_stitching_tpu_torch.utils.profiling import (
+    count,
+    count_d2h,
+    count_h2d,
+)
 
 
 def _col_any(canvas: torch.Tensor) -> torch.Tensor:
@@ -53,7 +58,10 @@ def _blend_pair(
     counter = torch.cumsum(ov, 0) - ov
     # a 0-dim tensor on the canvas's device: CUDA divides by a Python
     # number (or a CPU scalar) through its reciprocal
-    rng = torch.as_tensor(overlap_range, dtype=torch.float64).to(dev)
+    rng = torch.as_tensor(overlap_range, dtype=torch.float64)
+    if not (torch.is_tensor(overlap_range) and overlap_range.device == dev):
+        count_h2d(rng.nbytes)
+    rng = rng.to(dev)
     nonzero = rng != 0.0
     alpha = torch.where(
         nonzero, counter / torch.where(nonzero, rng, torch.ones_like(rng)),
@@ -87,8 +95,12 @@ def compose_mosaic(
       return_steps: also return each step's mosaic cropped to its local
         canvas, on the host (the reference ``pano_step_*``
         intermediates).
+
+    Counts ``n_fold_steps``, each host value put on the device and each
+    step crop pulled in the current request.
     """
     images = torch.as_tensor(images)
+    count("n_fold_steps", len(plan.steps))
     mosaic = place_on_canvas(images[0], plan.height, plan.width,
                              plan.mosaic0_off_y, plan.mosaic0_off_x)
     captured: List[np.ndarray] = []
@@ -100,8 +112,10 @@ def compose_mosaic(
         else:
             mosaic = _blend_pair(mosaic, img_canvas, s.overlap_range)
         if return_steps:
-            captured.append(mosaic[
+            step = mosaic[
                 s.frame_off_y:s.frame_off_y + s.local_h,
                 s.frame_off_x:s.frame_off_x + s.local_w,
-            ].cpu().numpy())
+            ]
+            count_d2h(step.nbytes)
+            captured.append(step.cpu().numpy())
     return (mosaic, captured) if return_steps else mosaic

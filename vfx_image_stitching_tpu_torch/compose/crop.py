@@ -15,6 +15,7 @@ import torch
 
 from vfx_image_stitching_tpu_torch.compose.host import content_bounds_host
 from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_u8
+from vfx_image_stitching_tpu_torch.utils.profiling import count_d2h
 
 
 def _content_bounds(img: torch.Tensor, black_threshold: int) -> torch.Tensor:
@@ -41,14 +42,18 @@ def _bounds_tuple(bounds) -> tuple:
 
 def crop_bounds(img_device: torch.Tensor, black_threshold: int) -> tuple:
     """Bounds of a mosaic on a device, pulled to the host."""
-    return _bounds_tuple(_content_bounds(img_device, black_threshold).cpu())
+    bounds = _content_bounds(img_device, black_threshold)
+    count_d2h(bounds.nbytes)
+    return _bounds_tuple(bounds.cpu())
 
 
 def mosaic_with_bounds(img: torch.Tensor, black_threshold: int):
     """``(mosaic, bounds)`` on the host: the mosaic pulled as it is, and
     its bounds computed on its device and pulled as their own (5,)
-    tensor."""
+    tensor (both pulls counted in the current request)."""
     bounds = _content_bounds(img, black_threshold)
+    count_d2h(img.nbytes)
+    count_d2h(bounds.nbytes)
     return img.cpu().numpy(), _bounds_tuple(bounds.cpu())
 
 

@@ -25,6 +25,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from vfx_image_stitching_tpu_torch.utils.profiling import count, count_h2d, span
+
 
 @functools.lru_cache(maxsize=256)
 def cylindrical_index_map(h: int, w: int, focal: float) -> np.ndarray:
@@ -70,9 +72,19 @@ def cylindrical_project_batch(
     batch_bgr: torch.Tensor, focals: Sequence[float]
 ) -> torch.Tensor:
     """Project an (N, H, W[, C]) batch with per-image focals, on the
-    batch's device."""
+    batch's device.  Spans ``project.maps`` (with the map cache's misses
+    and hits, ``n_maps_built`` and ``n_maps_cached``), ``project.upload``
+    and ``project.gather`` in the current request."""
     n, h, w = batch_bgr.shape[:3]
-    winners = np.stack([cylindrical_index_map(h, w, float(f)) for f in focals])
-    return _gather_project(
-        batch_bgr, torch.as_tensor(winners, device=batch_bgr.device)
-    )
+    with span("project.maps"):
+        before = cylindrical_index_map.cache_info()
+        winners = np.stack([cylindrical_index_map(h, w, float(f))
+                            for f in focals])
+        after = cylindrical_index_map.cache_info()
+        count("n_maps_built", after.misses - before.misses)
+        count("n_maps_cached", after.hits - before.hits)
+    with span("project.upload"):
+        count_h2d(winners.nbytes)
+        maps = torch.as_tensor(winners, device=batch_bgr.device)
+    with span("project.gather"):
+        return _gather_project(batch_bgr, maps)

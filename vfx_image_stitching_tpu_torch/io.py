@@ -192,21 +192,30 @@ def load_dataset(
 
     Unreadable images become ``None`` placeholders that downstream stages
     tolerate (shift (0,0), dummy match pair), as the reference's
-    ``run_panorama`` does.
+    ``run_panorama`` does.  Spans ``load.read`` and ``load.decode`` and
+    counters ``n_images`` and ``n_decode_failed`` in the current request.
     """
-    if not folder.endswith(("/", "\\")):
-        folder = folder + "/"
-    if pano_file is None:
-        pano_file = os.path.join(folder, "pano.txt")
-    img_paths, focals = read_pano_data(pano_file)
-    resolved = [resolve_image_path(p, folder) for p in img_paths]
-    if len(resolved) > 1:
-        from concurrent.futures import ThreadPoolExecutor
+    # the tracer's package imports torch, which importing this package
+    # does not
+    from vfx_image_stitching_tpu_torch.utils.profiling import count, span
 
-        with ThreadPoolExecutor(max_workers=min(8, len(resolved))) as pool:
-            images = list(pool.map(_load_or_none, resolved))
-    else:
-        images = [_load_or_none(p) for p in resolved]
+    with span("load.read"):
+        if not folder.endswith(("/", "\\")):
+            folder = folder + "/"
+        if pano_file is None:
+            pano_file = os.path.join(folder, "pano.txt")
+        img_paths, focals = read_pano_data(pano_file)
+        resolved = [resolve_image_path(p, folder) for p in img_paths]
+    with span("load.decode"):
+        if len(resolved) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=min(8, len(resolved))) as pool:
+                images = list(pool.map(_load_or_none, resolved))
+        else:
+            images = [_load_or_none(p) for p in resolved]
+    count("n_images", len(images))
+    count("n_decode_failed", sum(im is None for im in images))
     return images, focals, resolved
 
 
@@ -216,18 +225,22 @@ def stack_dataset(
     """Stack same-shape images into (N, H, W, 3) uint8 + validity mask.
 
     ``None`` entries are replaced by zeros with ``valid=False`` so the
-    batched pipeline keeps fixed shapes.
+    batched pipeline keeps fixed shapes.  Span ``load.stack`` in the
+    current request.
     """
-    shapes = {im.shape for im in images if im is not None}
-    if len(shapes) > 1:
-        raise ValueError(f"dataset images disagree on shape: {shapes}")
-    if not shapes:
-        raise ValueError("no readable images in dataset")
-    shape = next(iter(shapes))
-    batch = np.zeros((len(images),) + shape, dtype=np.uint8)
-    valid = np.zeros((len(images),), dtype=bool)
-    for i, im in enumerate(images):
-        if im is not None:
-            batch[i] = im
-            valid[i] = True
+    from vfx_image_stitching_tpu_torch.utils.profiling import span
+
+    with span("load.stack"):
+        shapes = {im.shape for im in images if im is not None}
+        if len(shapes) > 1:
+            raise ValueError(f"dataset images disagree on shape: {shapes}")
+        if not shapes:
+            raise ValueError("no readable images in dataset")
+        shape = next(iter(shapes))
+        batch = np.zeros((len(images),) + shape, dtype=np.uint8)
+        valid = np.zeros((len(images),), dtype=bool)
+        for i, im in enumerate(images):
+            if im is not None:
+                batch[i] = im
+                valid[i] = True
     return batch, valid

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from vfx_image_stitching_tpu_torch.utils.profiling import count_h2d
+
 _BIG = 3.0e38
 
 
@@ -46,6 +48,7 @@ def _ratio_test(matched, best_dist, second, lowe_ratio: float):
     computes it."""
     r2 = torch.tensor(lowe_ratio * lowe_ratio, dtype=torch.float32,
                       device=second.device)
+    count_h2d(r2.nbytes)
     return matched & (best_dist < r2 * second)
 
 

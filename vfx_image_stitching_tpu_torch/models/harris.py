@@ -49,6 +49,7 @@ from vfx_image_stitching_tpu_torch.ops.gradients import (
     calc_orientation,
     reference_gradients,
 )
+from vfx_image_stitching_tpu_torch.utils.profiling import span
 
 _NEG_INF = float("-inf")
 
@@ -201,14 +202,18 @@ def harris_keypoints_and_descriptors(
     (..., K, 128) float32 descriptors, (..., K) validity.  Order is
     response-descending with border keypoints masked invalid in place
     (their relative order, which drives match/RANSAC tie-breaks, matches
-    the reference's compacted list).
+    the reference's compacted list).  Spans ``extract.corners`` and
+    ``extract.describe`` in the current request.
     """
-    yy, xx, _, valid, (ix, iy) = harris_corners(img_bgr, cfg)
-    h, w = ix.shape[-2:]
-    mrg = cfg.border_margin
-    valid = valid & (yy >= mrg) & (yy < h - mrg) & (xx >= mrg) & (xx < w - mrg)
-    descs = harris_descriptors(yy, xx, ix, iy, cfg)
-    xy = torch.stack([xx, yy], dim=-1).to(torch.int32)
+    with span("extract.corners"):
+        yy, xx, _, valid, (ix, iy) = harris_corners(img_bgr, cfg)
+        h, w = ix.shape[-2:]
+        mrg = cfg.border_margin
+        valid = (valid & (yy >= mrg) & (yy < h - mrg) & (xx >= mrg)
+                 & (xx < w - mrg))
+    with span("extract.describe"):
+        descs = harris_descriptors(yy, xx, ix, iy, cfg)
+        xy = torch.stack([xx, yy], dim=-1).to(torch.int32)
     return xy, descs, valid
 
 

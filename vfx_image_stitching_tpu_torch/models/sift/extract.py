@@ -60,6 +60,7 @@ from vfx_image_stitching_tpu_torch.models.sift.keypoints import (
     convert_keypoints_to_input_image_size,
     sort_and_dedup,
 )
+from vfx_image_stitching_tpu_torch.utils.profiling import count_h2d, span
 
 
 def _to_gray(image: torch.Tensor) -> torch.Tensor:
@@ -102,14 +103,18 @@ def _sift(
     gray: torch.Tensor, cfg: SiftConfig
 ) -> Tuple[Keypoints, torch.Tensor, Dict[str, torch.Tensor]]:
     """The extraction of an (H, W) gray image, or of an (N, H, W) batch
-    with every stage over the leading image axis."""
+    with every stage over the leading image axis.  Spans
+    ``extract.pyramid`` and, in every octave, ``extract.extrema``,
+    ``extract.localize``, ``extract.orientation`` and
+    ``extract.descriptor`` in the current request."""
     dev = gray.device
     lead = gray.shape[:-2]
-    base = generate_base_image(gray, cfg.sigma, cfg.assumed_blur)
-    num_octaves = compute_number_of_octaves(base.shape[-2:])
-    kernels = generate_gaussian_kernels(cfg.sigma, cfg.num_intervals)
-    pyramid = generate_gaussian_images(base, num_octaves, kernels)
-    dogs = generate_dog_images(pyramid)
+    with span("extract.pyramid"):
+        base = generate_base_image(gray, cfg.sigma, cfg.assumed_blur)
+        num_octaves = compute_number_of_octaves(base.shape[-2:])
+        kernels = generate_gaussian_kernels(cfg.sigma, cfg.num_intervals)
+        pyramid = generate_gaussian_images(base, num_octaves, kernels)
+        dogs = generate_dog_images(pyramid)
     thresh = extrema_threshold(cfg.contrast_threshold, cfg.num_intervals)
 
     caps = cfg.capacities
@@ -122,41 +127,51 @@ def _sift(
         dog = dogs[o]
         h_o, w_o = dog.shape[-2:]
         cand_cap = min(caps.scaled_candidates(o), 3 * h_o * w_o)
-        layer, y, x, cand_valid = extract_candidates(
-            dog, cfg.image_border_width, thresh, cand_cap
-        )
-        loc = localize_candidates_resident(dog, layer, y, x, cand_valid, o, cfg)
-        loc_cap = min(caps.scaled_localized(o), cand_cap)
-        loc_counts.append(torch.sum(loc.valid, dim=-1))
-        loc_caps.append(loc_cap)
-        loc = compact_localized(loc, loc_cap)
-        # gradient fields are consumed only at the localized layers
-        # 1..num_intervals, and only when the octave localized anything;
-        # a batch computes them for every image (JAX vmap's select), and
-        # an image that localized nothing never reads its own
-        grad_src = pyramid[o][..., 1 : cfg.num_intervals + 1, :, :]
-        if lead or bool(loc.valid.any()):
-            mag, ang = gradient_fields(grad_src)
-        else:
-            mag, ang = torch.zeros_like(grad_src), torch.zeros_like(grad_src)
-        kps = assign_orientations_chunked(mag, ang, loc, o, cfg, layer_base=1)
-        o_cap = caps.scaled_oriented(o)
-        kps_c = convert_keypoints_to_input_image_size(compact(kps, o_cap))
-        if caps.desc_bucketed:
-            big_cap = min(caps._table(caps.desc_big_caps, o), o_cap)
-            desc, big_count = compute_descriptors_bucketed(
-                mag, ang, kps_c, o, cfg,
-                small_cap=min(caps._table(caps.desc_small_caps, o), o_cap),
-                big_cap=big_cap,
-                layer_base=1,
+        with span("extract.extrema"):
+            layer, y, x, cand_valid = extract_candidates(
+                dog, cfg.image_border_width, thresh, cand_cap
             )
-            desc_big_counts.append(big_count)
-            desc_big_caps.append(big_cap)
-        else:
-            desc = compute_descriptors_chunked(mag, ang, kps_c, o, cfg,
-                                               layer_base=1)
-            desc_big_counts.append(torch.zeros(lead, dtype=torch.int64, device=dev))
-            desc_big_caps.append(1)
+        with span("extract.localize"):
+            loc = localize_candidates_resident(dog, layer, y, x, cand_valid,
+                                               o, cfg)
+            loc_cap = min(caps.scaled_localized(o), cand_cap)
+            loc_counts.append(torch.sum(loc.valid, dim=-1))
+            loc_caps.append(loc_cap)
+            loc = compact_localized(loc, loc_cap)
+        with span("extract.orientation"):
+            # gradient fields are consumed only at the localized layers
+            # 1..num_intervals, and only when the octave localized
+            # anything; a batch computes them for every image (JAX vmap's
+            # select), and an image that localized nothing never reads
+            # its own
+            grad_src = pyramid[o][..., 1 : cfg.num_intervals + 1, :, :]
+            if lead or bool(loc.valid.any()):
+                mag, ang = gradient_fields(grad_src)
+            else:
+                mag, ang = (torch.zeros_like(grad_src),
+                            torch.zeros_like(grad_src))
+            kps = assign_orientations_chunked(mag, ang, loc, o, cfg,
+                                              layer_base=1)
+            o_cap = caps.scaled_oriented(o)
+            kps_c = convert_keypoints_to_input_image_size(compact(kps, o_cap))
+        with span("extract.descriptor"):
+            if caps.desc_bucketed:
+                big_cap = min(caps._table(caps.desc_big_caps, o), o_cap)
+                desc, big_count = compute_descriptors_bucketed(
+                    mag, ang, kps_c, o, cfg,
+                    small_cap=min(caps._table(caps.desc_small_caps, o),
+                                  o_cap),
+                    big_cap=big_cap,
+                    layer_base=1,
+                )
+                desc_big_counts.append(big_count)
+                desc_big_caps.append(big_cap)
+            else:
+                desc = compute_descriptors_chunked(mag, ang, kps_c, o, cfg,
+                                                   layer_base=1)
+                desc_big_counts.append(
+                    torch.zeros(lead, dtype=torch.int64, device=dev))
+                desc_big_caps.append(1)
         per_kps.append(kps_c)
         per_desc.append(desc)
         cand_counts.append(torch.sum(cand_valid, dim=-1))
@@ -170,6 +185,7 @@ def _sift(
 
     def caps_t(vals):
         t = torch.tensor(vals, dtype=torch.int32, device=dev)
+        count_h2d(t.nbytes)
         return t.expand(lead + t.shape).contiguous()
 
     stats = {

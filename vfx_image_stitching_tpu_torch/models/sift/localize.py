@@ -33,6 +33,7 @@ from vfx_image_stitching_tpu_torch.models.sift.chunking import (
     finish_rows,
     live_rows,
 )
+from vfx_image_stitching_tpu_torch.utils.profiling import count_h2d
 
 
 class Localized(NamedTuple):
@@ -78,6 +79,7 @@ def _cube_offsets(h: int, w: int, device) -> torch.Tensor:
          for dl in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)],
         dtype=np.int64,
     )
+    count_h2d(offs.nbytes)
     return torch.as_tensor(offs, device=device)
 
 

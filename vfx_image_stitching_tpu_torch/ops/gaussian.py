@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from vfx_image_stitching_tpu_torch.utils.profiling import count_h2d
+
 
 def cv2_auto_ksize(sigma: float) -> int:
     """OpenCV's automatic Gaussian kernel size for float-depth images."""
@@ -43,6 +45,7 @@ def _pad_axis(x: torch.Tensor, pad: int, axis: int, mode: str) -> torch.Tensor:
     if pad == 0:
         return x
     idx = np.pad(np.arange(x.shape[axis]), pad, mode=mode)
+    count_h2d(idx.nbytes)
     return x.index_select(axis, torch.as_tensor(idx, device=x.device))
 
 

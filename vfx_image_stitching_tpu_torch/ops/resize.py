@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vfx_image_stitching_tpu_torch.utils.profiling import count_h2d
+
 
 def _linear_weights(n_out: int, n_in: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """cv2 INTER_LINEAR source indices/weights for a 1-D axis (float64)."""
@@ -27,12 +29,17 @@ def _linear_weights(n_out: int, n_in: int) -> tuple[np.ndarray, np.ndarray, np.n
     return i0, i1, frac.astype(np.float32)
 
 
+def _upload(a: np.ndarray, dev) -> torch.Tensor:
+    count_h2d(a.nbytes)
+    return torch.as_tensor(a, device=dev)
+
+
 def upsample2x_linear(img: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsample of trailing (H, W); cv2 INTER_LINEAR parity."""
     h, w = img.shape[-2], img.shape[-1]
     dev = img.device
-    y0, y1, fy = (torch.as_tensor(a, device=dev) for a in _linear_weights(2 * h, h))
-    x0, x1, fx = (torch.as_tensor(a, device=dev) for a in _linear_weights(2 * w, w))
+    y0, y1, fy = (_upload(a, dev) for a in _linear_weights(2 * h, h))
+    x0, x1, fx = (_upload(a, dev) for a in _linear_weights(2 * w, w))
     x = img.to(torch.float32)
     fy_b = fy[:, None]
     rows = x.index_select(-2, y0) * (1.0 - fy_b) + x.index_select(-2, y1) * fy_b

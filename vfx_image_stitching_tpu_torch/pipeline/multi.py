@@ -21,7 +21,6 @@ from __future__ import annotations
 import concurrent.futures as cf
 import dataclasses
 import os
-import time
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -43,7 +42,9 @@ from vfx_image_stitching_tpu_torch.pipeline.stitch import (
     _autoscale_sift_caps,
     _stitch_inner,
     resolve_device,
+    _upload_batch,
 )
+from vfx_image_stitching_tpu_torch.utils.profiling import request, span
 
 
 def _autoscale_many(cfg: StitchConfig, folders) -> StitchConfig:
@@ -96,7 +97,9 @@ def stitch_many(
     ``capacity_stats`` and not recovered: re-run that dataset with
     ``stitch_panorama``, which grows the capacities.  Each result's
     ``timings`` are its pass's, plus ``load_wait`` (seconds spent waiting
-    for its decode) and ``cumulative`` (seconds since the call began).
+    for its decode) and ``cumulative`` (seconds since the call began):
+    the call is one request, whose root span (``stitch``) holds each
+    dataset's ``load_wait`` span and phases (``utils/profiling.py``).
 
     With ``mesh`` (a ``parallel.mesh.Mesh``; ``device`` is then unused)
     the datasets run through :func:`_stitch_many_sharded`, with equal
@@ -112,31 +115,29 @@ def stitch_many(
     if mesh is not None:
         return _stitch_many_sharded(folders, mesh, margins, cfg, verbose)
     dev = resolve_device(device)
-    t0 = time.time()
     names = [os.path.basename(os.path.normpath(f)) for f in folders]
 
     results: Dict[str, StitchResult] = {}
-    with cf.ThreadPoolExecutor(max_workers=len(folders)) as pool:
+    with request() as trace, \
+            cf.ThreadPoolExecutor(max_workers=len(folders)) as pool:
         loads = [pool.submit(_load, f) for f in folders]
         for name, load in zip(names, loads):
-            tw = time.time()
-            batch, valid, focals = load.result()
-            load_wait = time.time() - tw
+            with span("load_wait"):
+                batch, valid, focals = load.result()
             margin = margins.get(name, DEFAULT_CROP_MARGINS.get(name, 15))
             # capacity_stats surfaced, not recovered: the datasets share
             # one configuration; stitch_panorama recovers one dataset
-            res = _stitch_inner(batch, valid, focals, margin, cfg, dev,
-                                verbose=False)
-            res.timings["load_wait"] = load_wait
-            res.timings["cumulative"] = time.time() - t0
+            res = _stitch_inner(trace, batch, valid, focals, margin, cfg,
+                                dev, verbose=False)
+            res.timings["cumulative"] = trace.elapsed()
             results[name] = res
             if verbose:
                 print(f"{name}: {res.panorama.shape} in "
                       f"{res.timings['total']:.2f} s (cumulative "
                       f"{res.timings['cumulative']:.2f} s)")
-
-    if verbose:
-        print(f"stitched {len(folders)} panoramas in {time.time() - t0:.2f} s")
+        if verbose:
+            print(f"stitched {len(folders)} panoramas in "
+                  f"{trace.elapsed():.2f} s")
     return results
 
 
@@ -159,7 +160,8 @@ def _stitch_many_sharded(
     reported in ``capacity_stats`` and not recovered.  Each result's
     ``timings``: ``shift_stage`` (its group's sharded stage, seconds),
     ``finalize``, ``compose``, ``crop``, ``total`` (its own tail) and
-    ``cumulative`` (since the call began).
+    ``cumulative`` (since the call began), from the spans of the call's
+    request.
     """
     from vfx_image_stitching_tpu_torch.parallel.mesh import (
         Mesh,
@@ -175,56 +177,60 @@ def _stitch_many_sharded(
             f"mesh: expected a vfx_image_stitching_tpu_torch.parallel Mesh, "
             f"got {type(mesh).__name__}")
     dev = mesh.devices.flat[0]
-    t0 = time.time()
-    names = [os.path.basename(os.path.normpath(f)) for f in folders]
-    with cf.ThreadPoolExecutor(max_workers=max(1, len(folders))) as pool:
-        loaded = list(pool.map(_load, folders))
+    with request() as trace:
+        names = [os.path.basename(os.path.normpath(f)) for f in folders]
+        with cf.ThreadPoolExecutor(max_workers=max(1, len(folders))) as pool:
+            loaded = list(pool.map(_load, folders))
 
-    groups: Dict[tuple, list] = {}
-    for k, (batch, _valid, _focals) in enumerate(loaded):
-        groups.setdefault(batch.shape, []).append(k)
-    staged: Dict[int, tuple] = {}
-    for members in groups.values():
-        ts = time.time()
-        cyls = [
-            cylindrical_project_batch(torch.as_tensor(loaded[k][0]).to(dev),
-                                      [float(f) for f in loaded[k][2]])
-            for k in members
-        ]
-        # (xy, valid_kp, meta, stats, pair_out), each with a leading P axis
-        leaves = sharded_multi_pano_full(torch.stack(cyls), mesh, cfg)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        shift_s = time.time() - ts
-        for q, k in enumerate(members):
-            staged[k] = (cyls[q], _tree_map(lambda v: v[q], leaves), shift_s)
+        groups: Dict[tuple, list] = {}
+        for k, (batch, _valid, _focals) in enumerate(loaded):
+            groups.setdefault(batch.shape, []).append(k)
+        staged: Dict[int, tuple] = {}
+        for members in groups.values():
+            with span("shift_stage") as stage:
+                cyls = [
+                    cylindrical_project_batch(
+                        _upload_batch(loaded[k][0], dev),
+                        [float(f) for f in loaded[k][2]])
+                    for k in members
+                ]
+                # (xy, valid_kp, meta, stats, pair_out), each with a
+                # leading P axis
+                leaves = sharded_multi_pano_full(torch.stack(cyls), mesh, cfg)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            shift_s = stage.seconds
+            for q, k in enumerate(members):
+                staged[k] = (cyls[q], _tree_map(lambda v: v[q], leaves),
+                             shift_s)
 
-    results: Dict[str, StitchResult] = {}
-    for k, name in enumerate(names):
-        _batch, valid, _focals = loaded[k]
-        cyl, leaves, shift_s = staged[k]
-        h, w = cyl.shape[1:3]
-        margin = margins.get(name, DEFAULT_CROP_MARGINS.get(name, 15))
-        fin = finalize_to_panorama(cyl, *leaves, list(valid), cfg, h, w, margin)
-        results[name] = StitchResult(
-            panorama=fin.panorama,
-            mosaic=fin.mosaic,
-            shifts=fin.shifts,
-            corrected_shifts=fin.corrected,
-            pairs=fin.pairs,
-            timings=dict(
-                shift_stage=shift_s, finalize=fin.finalize_s,
-                compose=fin.compose_s, crop=fin.crop_s,
-                total=fin.finalize_s + fin.compose_s + fin.crop_s,
-                cumulative=time.time() - t0,
-                esc_n_pairs=fin.detail.get("esc_n_pairs", 0),
-                esc_n_rows=fin.detail.get("esc_n_rows", 0)),
-            capacity_stats=fin.detail.get("capacity_overflow"),
-        )
+        results: Dict[str, StitchResult] = {}
+        for k, name in enumerate(names):
+            _batch, valid, _focals = loaded[k]
+            cyl, leaves, shift_s = staged[k]
+            h, w = cyl.shape[1:3]
+            margin = margins.get(name, DEFAULT_CROP_MARGINS.get(name, 15))
+            fin = finalize_to_panorama(cyl, *leaves, list(valid), cfg, h, w,
+                                       margin)
+            results[name] = StitchResult(
+                panorama=fin.panorama,
+                mosaic=fin.mosaic,
+                shifts=fin.shifts,
+                corrected_shifts=fin.corrected,
+                pairs=fin.pairs,
+                timings=dict(
+                    shift_stage=shift_s, finalize=fin.finalize_s,
+                    compose=fin.compose_s, crop=fin.crop_s,
+                    total=fin.finalize_s + fin.compose_s + fin.crop_s,
+                    cumulative=trace.elapsed(),
+                    esc_n_pairs=fin.detail.get("esc_n_pairs", 0),
+                    esc_n_rows=fin.detail.get("esc_n_rows", 0)),
+                capacity_stats=fin.detail.get("capacity_overflow"),
+            )
+            if verbose:
+                print(f"{name}: {fin.panorama.shape} (cumulative "
+                      f"{results[name].timings['cumulative']:.2f} s)")
         if verbose:
-            print(f"{name}: {fin.panorama.shape} (cumulative "
-                  f"{results[name].timings['cumulative']:.2f} s)")
-    if verbose:
-        print(f"stitched {len(folders)} panoramas on {mesh} in "
-              f"{time.time() - t0:.2f} s")
-    return results
+            print(f"stitched {len(folders)} panoramas on {mesh} in "
+                  f"{trace.elapsed():.2f} s")
+        return results

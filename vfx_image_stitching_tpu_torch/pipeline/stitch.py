@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 import warnings
 from typing import List, Optional, Sequence, Tuple
 
@@ -56,11 +55,26 @@ from vfx_image_stitching_tpu_torch.io import (
 from vfx_image_stitching_tpu_torch.match.nn import match_descriptors
 from vfx_image_stitching_tpu_torch.models.harris import harris_batch
 from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_f32
-from vfx_image_stitching_tpu_torch.utils.profiling import profile_trace
+from vfx_image_stitching_tpu_torch.utils.profiling import (
+    Trace,
+    count_d2h,
+    count_h2d,
+    profile_trace,
+    request,
+    span,
+)
+
+# the phases of one pass, whose seconds sum to ``timings["total"]``
+PASS_PHASES = ("project", "extract", "pairs", "finalize", "compose", "crop")
 
 
 @dataclasses.dataclass
 class StitchResult:
+    """A stitch's panorama and how it got there.  ``timings`` holds
+    seconds as floats (each span of the request, by name, and ``total``)
+    and counts as ints (each counter: ``passes``, ``h2d_bytes``,
+    ``n_maps_built``, ...)."""
+
     panorama: np.ndarray                  # cropped final panorama (BGR u8)
     mosaic: np.ndarray                    # uncropped mosaic
     shifts: List[Tuple[float, float]]     # raw pairwise shifts
@@ -211,7 +225,9 @@ def finalize_pairwise_shifts(
     ``timings_out`` the capacity stats of an overflowing run are stored
     under ``capacity_overflow``, and the escalated pairs, their material
     rows and the escalation time under ``esc_n_pairs`` / ``esc_n_rows`` /
-    ``escalate_s``.  Returns ``(shifts, pairs,
+    ``escalate_s``.  Spans ``finalize.pull`` and ``finalize.escalate`` in
+    the current request, if any; each pull to the host counts
+    in ``d2h_bytes`` / ``n_d2h``.  Returns ``(shifts, pairs,
     match_counts)``.
     """
     mcfg = cfg.match()
@@ -222,15 +238,19 @@ def finalize_pairwise_shifts(
     ) = pair_out
 
     def host(t):
+        count_d2h(t.nbytes)
         return t.cpu().numpy()
 
-    shifts_np = host(shifts_d).astype(np.float64)
-    pa_np = host(pa_d).astype(np.float64)
-    pb_np = host(pb_d).astype(np.float64)
-    any_np = host(any_d).copy()
-    counts = host(counts_d).astype(np.int64)
-    nmaterial_np = host(nmaterial_d).astype(np.int64)
-    maxinm_np = host(maxinm_d).astype(np.int64)
+    with span("finalize.pull"):
+        shifts_np = host(shifts_d).astype(np.float64)
+        pa_np = host(pa_d).astype(np.float64)
+        pb_np = host(pb_d).astype(np.float64)
+        any_np = host(any_d).copy()
+        counts = host(counts_d).astype(np.int64)
+        nmaterial_np = host(nmaterial_d).astype(np.int64)
+        maxinm_np = host(maxinm_d).astype(np.int64)
+        host_stats = (None if stats is None
+                      else {key: host(v) for key, v in stats.items()})
 
     # top-4 candidate-capacity guard: the strict re-rank can only consider
     # the candidates the device exported
@@ -244,12 +264,11 @@ def finalize_pairwise_shifts(
             "may degrade — raise the candidate width in match_descriptors",
             RuntimeWarning, stacklevel=2,
         )
-    if stats is not None:
+    if host_stats is not None:
         from vfx_image_stitching_tpu_torch.utils.capacity import (
             capacity_overflow_report,
         )
 
-        host_stats = {key: host(v) for key, v in stats.items()}
         overflow_msgs = capacity_overflow_report(host_stats)
         for msg in overflow_msgs:
             warnings.warn(f"SIFT capacity: {msg}", RuntimeWarning, stacklevel=2)
@@ -269,45 +288,46 @@ def finalize_pairwise_shifts(
         timings_out["esc_n_pairs"] = len(esc_rows)
         timings_out["esc_n_rows"] = int(nmaterial_np[esc_rows].sum())
     if esc_rows:
-        t0 = time.time()
-        from vfx_image_stitching_tpu_torch.models.sift.strict import (
-            escalate_pair,
-        )
-
-        xy_np = host(xy).astype(np.float64)
-        meta_np = {k: host(v) for k, v in meta.items()}
-        validkp_np = host(valid_kp)
-        bestb_np = host(bestb_d).astype(np.int64)
-        candidx_np = host(candidx_d).astype(np.int64)
-        candinm_np = host(candinm_d)
-        matched_np = host(matched_d)
-        bflip_np = host(bflip_d)
-        bswap_np = host(bswap_d)
-        material_np = host(material_d)
-        for i in esc_rows:
-            pair_imgs = cyl[i:i + 2]
-            if torch.is_tensor(pair_imgs):
-                pair_imgs = pair_imgs.cpu().numpy()
-            esc = escalate_pair(
-                pair_imgs[0], pair_imgs[1],
-                xy_np[i], {k: v[i] for k, v in meta_np.items()},
-                xy_np[i + 1], {k: v[i + 1] for k, v in meta_np.items()},
-                validkp_np[i], bestb_np[i], candidx_np[i], candinm_np[i],
-                matched_np[i], bflip_np[i], bswap_np[i], material_np[i],
-                cfg=cfg.sift,
-                desc_thresh=mcfg.desc_thresh,
-                ransac_thresh=mcfg.ransac_thresh,
+        with span("finalize.escalate") as esc_span:
+            from vfx_image_stitching_tpu_torch.models.sift.strict import (
+                escalate_pair,
             )
-            if esc is None:
-                continue  # strict pass confirmed the device result
-            shift, pair, anym = esc
-            any_np[i] = anym
-            if anym:
-                shifts_np[i] = shift
-                pa_np[i] = pair[0]
-                pb_np[i] = pair[1]
+
+            xy_np = host(xy).astype(np.float64)
+            meta_np = {k: host(v) for k, v in meta.items()}
+            validkp_np = host(valid_kp)
+            bestb_np = host(bestb_d).astype(np.int64)
+            candidx_np = host(candidx_d).astype(np.int64)
+            candinm_np = host(candinm_d)
+            matched_np = host(matched_d)
+            bflip_np = host(bflip_d)
+            bswap_np = host(bswap_d)
+            material_np = host(material_d)
+            for i in esc_rows:
+                pair_imgs = cyl[i:i + 2]
+                if torch.is_tensor(pair_imgs):
+                    count_d2h(pair_imgs.nbytes)
+                    pair_imgs = pair_imgs.cpu().numpy()
+                esc = escalate_pair(
+                    pair_imgs[0], pair_imgs[1],
+                    xy_np[i], {k: v[i] for k, v in meta_np.items()},
+                    xy_np[i + 1], {k: v[i + 1] for k, v in meta_np.items()},
+                    validkp_np[i], bestb_np[i], candidx_np[i], candinm_np[i],
+                    matched_np[i], bflip_np[i], bswap_np[i], material_np[i],
+                    cfg=cfg.sift,
+                    desc_thresh=mcfg.desc_thresh,
+                    ransac_thresh=mcfg.ransac_thresh,
+                )
+                if esc is None:
+                    continue  # strict pass confirmed the device result
+                shift, pair, anym = esc
+                any_np[i] = anym
+                if anym:
+                    shifts_np[i] = shift
+                    pa_np[i] = pair[0]
+                    pb_np[i] = pair[1]
         if timings_out is not None:
-            timings_out["escalate_s"] = time.time() - t0
+            timings_out["escalate_s"] = esc_span.seconds
 
     shifts, pairs = _lists_from_arrays(
         shifts_np, pa_np, pb_np, any_np, valid, int(cyl.shape[0])
@@ -405,30 +425,44 @@ def finalize_to_panorama(
     them.  ``cyl`` is the (N, H, W, 3) uint8 cylindrical batch on its
     device.  The fold runs on that device (``compose/blend.py``) and
     only the mosaic, its content bounds and, with ``return_steps``, the
-    step crops come back.
+    step crops come back.  Spans ``finalize``, ``compose`` (``.plan``,
+    ``.fold``, ``.pull``) and ``crop``, in the current request if any,
+    give the phases' seconds.
     """
     detail: dict = {}
-    t0 = time.time()
-    shifts, pairs, counts = finalize_pairwise_shifts(
-        cyl, xy, valid_kp, meta, stats, pair_out, list(valid), cfg,
-        timings_out=detail,
-    )
-    t1 = time.time()
-    n = int(cyl.shape[0])
-    corrected = correct_drift(shifts, n_images=n)
-    plan = plan_compose(h, w, n, list(valid), corrected, pairs)
-    out = compose_mosaic(cyl, plan, return_steps=return_steps)
-    mosaic_d, steps = out if return_steps else (out, None)
-    mosaic, bounds = mosaic_with_bounds(mosaic_d, cfg.black_threshold)
-    t2 = time.time()
-    panorama = apply_crop(mosaic, bounds, margin)
-    t3 = time.time()
+    with span("finalize") as finalize:
+        shifts, pairs, counts = finalize_pairwise_shifts(
+            cyl, xy, valid_kp, meta, stats, pair_out, list(valid), cfg,
+            timings_out=detail,
+        )
+    with span("compose") as compose:
+        with span("compose.plan"):
+            n = int(cyl.shape[0])
+            corrected = correct_drift(shifts, n_images=n)
+            plan = plan_compose(h, w, n, list(valid), corrected, pairs)
+        with span("compose.fold"):
+            out = compose_mosaic(cyl, plan, return_steps=return_steps)
+        mosaic_d, steps = out if return_steps else (out, None)
+        with span("compose.pull"):
+            mosaic, bounds = mosaic_with_bounds(mosaic_d,
+                                                cfg.black_threshold)
+    with span("crop") as crop:
+        panorama = apply_crop(mosaic, bounds, margin)
     return _Finalized(
         panorama=panorama, mosaic=mosaic, shifts=shifts,
         corrected=corrected, pairs=pairs, counts=counts, steps=steps,
-        finalize_s=t1 - t0, compose_s=t2 - t1, crop_s=t3 - t2,
-        detail=detail,
+        finalize_s=finalize.seconds, compose_s=compose.seconds,
+        crop_s=crop.seconds, detail=detail,
     )
+
+
+def _upload_batch(batch: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The decoded (N, H, W, 3) batch on ``dev`` (span ``project.upload``,
+    counted in ``h2d_bytes``); a temporary of the projection's call, so
+    the device frees it once the batch is projected."""
+    with span("project.upload"):
+        count_h2d(batch.nbytes)
+        return torch.as_tensor(batch).to(dev)
 
 
 def _sync(dev: torch.device) -> None:
@@ -454,9 +488,11 @@ def stitch_panorama(
     Images are decoded once; when a SIFT stage count reaches its
     framework-owned capacity, the run repeats with capacities grown to fit
     the measured counts (at most three times), reusing the decoded images.
-    ``timings["passes"]`` counts the passes.  The panorama is written to
-    ``save_path`` only when one is given; ``return_steps`` fills
-    ``StitchResult.steps``.
+    ``timings["passes"]`` counts the passes; the other timings are the
+    request's spans and counters (``utils/profiling.py``): the last
+    pass's, plus the load's and the request's own ``stitch`` seconds.
+    The panorama is written to ``save_path`` only when one is given;
+    ``return_steps`` fills ``StitchResult.steps``.
     The whole run is traced into ``cfg.profile_dir`` when that is set.
     """
     dev = resolve_device(device)
@@ -467,18 +503,18 @@ def stitch_panorama(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    with profile_trace(cfg.profile_dir):
-        t0 = time.time()
-        images, focals, _paths = load_dataset(folder, pano_file)
-        if not images:
-            raise ValueError("no valid entries in pano.txt")
-        batch, valid = stack_dataset(images)
-        load_s = time.time() - t0
+    with profile_trace(cfg.profile_dir), request() as trace:
+        with span("load"):
+            images, focals, _paths = load_dataset(folder, pano_file)
+            if not images:
+                raise ValueError("no valid entries in pano.txt")
+            batch, valid = stack_dataset(images)
+        loaded = trace.take()
 
         run_cfg, managed = _autoscale_sift_caps(cfg, batch.shape[1:3])
-        res = _stitch_inner(batch, valid, focals, margin, run_cfg, dev,
-                            verbose, return_steps)
-        res.timings["load"] = load_s
+        res = _stitch_inner(trace, batch, valid, focals, margin, run_cfg,
+                            dev, verbose, return_steps)
+        res.timings.update(loaded)
         res.timings["passes"] = 1
         for passes in range(2, 5):
             if not managed or res.capacity_stats is None:
@@ -496,10 +532,11 @@ def stitch_panorama(
                 run_cfg,
                 sift=dataclasses.replace(run_cfg.sift, capacities=grown),
             )
-            res = _stitch_inner(batch, valid, focals, margin, run_cfg, dev,
-                                verbose, return_steps)
-            res.timings["load"] = load_s
+            res = _stitch_inner(trace, batch, valid, focals, margin,
+                                run_cfg, dev, verbose, return_steps)
+            res.timings.update(loaded)
             res.timings["passes"] = passes
+    res.timings.update(trace.take())
     # save only when the caller gives a path; the reference's
     # write-into-the-input-folder behavior lives in the CLI
     if save_path:
@@ -508,45 +545,40 @@ def stitch_panorama(
 
 
 def _stitch_inner(
-    batch: np.ndarray, valid: np.ndarray, focals: Sequence[float],
-    margin: int, cfg: StitchConfig, dev: torch.device, verbose: bool,
-    return_steps: bool = False,
+    trace: Trace, batch: np.ndarray, valid: np.ndarray,
+    focals: Sequence[float], margin: int, cfg: StitchConfig,
+    dev: torch.device, verbose: bool, return_steps: bool = False,
 ) -> StitchResult:
     """One pass over decoded images: project, extract, match, then the
-    shared tail (:func:`finalize_to_panorama`).  Phase timings are
-    host-clock seconds with a device synchronize at every phase
-    boundary."""
-    timings: dict = {}
-    t0 = time.time()
-    n, h, w = batch.shape[:3]
-    cyl = cylindrical_project_batch(
-        torch.as_tensor(batch).to(dev), [float(f) for f in focals]
-    )
-    _sync(dev)
-    t1 = time.time()
-    timings["project"] = t1 - t0
+    shared tail (:func:`finalize_to_panorama`), in the caller's request
+    (``trace``).  Its timings are the request's spans and counters since
+    the last ``Trace.take``: each phase's host-clock seconds with a
+    device synchronize at every phase boundary, and ``total``, the sum of
+    the pass's phases (``PASS_PHASES``)."""
+    with span("project"):
+        cyl = cylindrical_project_batch(_upload_batch(batch, dev),
+                                        [float(f) for f in focals])
+        _sync(dev)
 
-    xy, descs, valid_kp, meta, stats = extract_features(cyl, cfg)
-    _sync(dev)
-    t2 = time.time()
-    timings["extract"] = t2 - t1
+    with span("extract"):
+        xy, descs, valid_kp, meta, stats = extract_features(cyl, cfg)
+        _sync(dev)
 
-    pair_out = dispatch_pair_step(xy, descs, valid_kp, cfg)
-    _sync(dev)
-    t3 = time.time()
-    timings["pairs"] = t3 - t2
+    with span("pairs"):
+        pair_out = dispatch_pair_step(xy, descs, valid_kp, cfg)
+        _sync(dev)
 
+    h, w = batch.shape[1:3]
     fin = finalize_to_panorama(
         cyl, xy, valid_kp, meta, stats, pair_out, list(valid), cfg, h, w,
         margin, return_steps=return_steps,
     )
-    timings["finalize"] = fin.finalize_s
+    timings = trace.take()
+    timings["total"] = sum(timings[k] for k in PASS_PHASES)
     if verbose:
-        print(f"Timer: {t3 - t0 + fin.finalize_s:.2f} s features + RANSAC "
+        features_s = sum(timings[k] for k in PASS_PHASES[:4])
+        print(f"Timer: {features_s:.2f} s features + RANSAC "
               f"(matches per pair: {list(map(int, fin.counts))})")
-    timings["compose"] = fin.compose_s
-    timings["crop"] = fin.crop_s
-    timings["total"] = time.time() - t0
     timings["esc_n_pairs"] = fin.detail.get("esc_n_pairs", 0)
     timings["esc_n_rows"] = fin.detail.get("esc_n_rows", 0)
     if "escalate_s" in fin.detail:
