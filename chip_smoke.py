@@ -45,12 +45,17 @@ Harris backend, the reference's default (``harris_stitch``: every pair
 matched, repeats identical, wall median, device time and kernels of a
 profiled run, idle share, the CPU's shifts, pairs and bytes equal).  Each
 path's run must launch its kernels and no other (``PATHS``; the Harris
-stitch none), and each kernel row reports the
-launches of its path's run.  Then the rest of the stitch surface on the
-chain: ``compose_routes`` (both backends' stitches, whose compose is
-the device fold, with and without the step capture, against the host
-fold on the same plan: equal bytes, 17 steps, each route's compose time,
-the device fold's device time and kernels), ``stage_api``
+stitch none of the SIFT library's), the SIFT and Harris stitches the
+fold kernel once for the occupancy and once a step
+(``check_fold_launches``), and each kernel row reports the launches of
+its path's run.  Then the rest of the stitch surface on the chain:
+``compose_routes`` (both backends' stitches, whose compose is the
+device fold, with and without the step capture, against the host fold
+on the same plan: equal bytes, 17 steps, each route's compose time, the
+device fold's device time and kernels), ``pano18_fold`` (at the
+benchmark's shape the fold kernel's and the plain fold's device time
+and kernels beside the byte bound; the kernel row ``compose_fold``),
+``stage_api``
 (``compute_pairwise_shifts`` + ``finalize_to_panorama`` against
 ``stitch_panorama``, a saved ``.png``),
 ``multi`` (``stitch_many`` over folders shaped like BASELINE's
@@ -145,7 +150,8 @@ PATHS = {
                        "localize_resident_r4"),
     # K5 here only for the A/B against P1 on the same rows
     "probe_desc": ("desc_scratch_dot", "descriptor_histograms"),
-    # the Harris stitch runs plain tensor ops only: no kernel may launch
+    # the Harris stitch launches none of these (its fold's kernels count
+    # in compose/blend.py's LAUNCHES: check_fold_launches)
     "harris": (),
     # find_scale_space_extrema + generate_descriptors on one image
     "stages": ("localize_newton_resident", "orientation_histograms",
@@ -202,6 +208,21 @@ def check_launches(path: str, launches: dict) -> None:
     if any(launches[n] <= 0 for n in want) or any(
             v != 0 for n, v in launches.items() if n not in want):
         raise AssertionError(f"{path}: launches {launches}, expected only {want}")
+
+
+def check_fold_launches(path: str, res, launches: dict) -> None:
+    """One stitch of the chain on the card folded by the fold kernel
+    (``compose/blend.py``'s ``LAUNCHES``, counted from 0 before it): one
+    occupancy launch and one step launch for each of its 17 fold steps,
+    and ``n_fold_kernel_steps`` equal to ``n_fold_steps``."""
+    steps = res.timings["n_fold_steps"]
+    want = {"compose_column_occupancy": 1, "compose_fold_step": N_IMAGES - 1}
+    if (launches != want or steps != N_IMAGES - 1
+            or res.timings["n_fold_kernel_steps"] != steps):
+        raise AssertionError(
+            f"{path}: fold launches {launches}, n_fold_steps {steps}, "
+            f"n_fold_kernel_steps {res.timings['n_fold_kernel_steps']}; "
+            f"expected {want}")
 
 
 def bound_ms(n_bytes: float, n_flops: float, tf32_flops: float = 0.0):
@@ -1030,15 +1051,19 @@ def profile_stitch(folder: str, median_s: float, backend: str = "sift") -> dict:
 def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
     import time
 
+    from vfx_image_stitching_tpu_torch.compose import blend
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
     K.reset_launch_counts()
+    blend.reset_launch_counts()
     t0 = time.time()
     res = run_stitch(folder, "cuda")
     first_s = time.time() - t0
     launches = dict(K.LAUNCHES)
+    fold_launches = dict(blend.LAUNCHES)
     check_result(res, N_IMAGES)
     check_launches("stitch", launches)
+    check_fold_launches("stitch", res, fold_launches)
 
     runs = []
     for _ in range(timed_runs):
@@ -1058,8 +1083,8 @@ def end_to_end(work: str, folder: str, timed_runs: int = 3) -> dict:
         escalated_pairs=int(res.timings["esc_n_pairs"]),
         escalated_rows=int(res.timings["esc_n_rows"]),
         passes=int(res.timings["passes"]),
-        launches=launches, panorama=list(res.panorama.shape),
-        shifts=res.shifts,
+        launches=launches, fold_launches=fold_launches,
+        panorama=list(res.panorama.shape), shifts=res.shifts,
     )
     emit(out)
 
@@ -1448,21 +1473,26 @@ def extraction_contract(gpu, cpu) -> dict:
 def harris_stitch(folder: str, card: str, timed_runs: int = 3) -> dict:
     """The chain stitched with the Harris backend (the reference's
     default, ``max_points`` = 200) on the card: one warm-up run with the
-    launch counts at 0 (no kernel of the repository may launch), all 17
-    pairs matched, ``timed_runs`` timed runs identical to it, one
+    launch counts at 0 (no SIFT kernel may launch, and the fold kernel's
+    launches are one a step and one for the occupancy), all 17 pairs
+    matched, ``timed_runs`` timed runs identical to it, one
     profiled stitch (device time, device kernels, idle share), and the
     chain on the CPU with equal shifts and pairs and the same bytes."""
     import time
 
+    from vfx_image_stitching_tpu_torch.compose import blend
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
     K.reset_launch_counts()
+    blend.reset_launch_counts()
     t0 = time.time()
     res = run_stitch(folder, "cuda", "harris")
     first_s = time.time() - t0
     launches = dict(K.LAUNCHES)
+    fold_launches = dict(blend.LAUNCHES)
     check_result(res, N_IMAGES)
     check_launches("harris", launches)
+    check_fold_launches("harris", res, fold_launches)
     runs = []
     for _ in range(timed_runs):
         t0 = time.time()
@@ -1490,8 +1520,8 @@ def harris_stitch(folder: str, card: str, timed_runs: int = 3) -> dict:
         device_kernels=prof["device_kernels"],
         device_idle_share=prof["device_idle_share"],
         profiled_wall_s=prof["profiled_wall_s"], top=prof["top"],
-        launches=launches, panorama=list(res.panorama.shape),
-        cpu_equal=same, cpu_s=cpu_s, shifts=res.shifts, cpu_shifts=cpu.shifts)
+        launches=launches, fold_launches=fold_launches,
+        panorama=list(res.panorama.shape), cpu_equal=same, cpu_s=cpu_s, shifts=res.shifts, cpu_shifts=cpu.shifts)
     emit(out)
     if not same:
         raise AssertionError("CUDA and CPU Harris runs of the chain differ")
@@ -1531,19 +1561,79 @@ def _median(xs) -> float:
     return float(np.median(xs))
 
 
+def pano18_fold(reps: int = 20) -> dict:
+    """The fold at the benchmark's ``pano18`` shape
+    (``utils/synthetic.pano18_fold_inputs``: 18 images of 512x384, 17
+    swapped steps): the kernel fold (``compose_mosaic`` on the card)
+    equal to the host fold byte for byte; its device ms, device kernels
+    and ms a launch of each of its kernels; the plain fold
+    (``fold_plain`` on the card, the ops the kernel replaced) on the same
+    plan, its device ms and kernels; the byte bound: every image read
+    once and the canvas written once, at the HBM rate."""
+    import torch
+
+    from vfx_image_stitching_tpu_torch.compose import blend
+    from vfx_image_stitching_tpu_torch.compose.host import compose_mosaic_host
+    from vfx_image_stitching_tpu_torch.utils.synthetic import (
+        pano18_fold_inputs,
+    )
+    from vfx_image_stitching_tpu_torch.utils.timing import kernel_profile
+
+    images, plan = pano18_fold_inputs()
+    cyl = torch.as_tensor(images).cuda()
+    host = compose_mosaic_host(list(images), plan)
+    kernel = blend.compose_mosaic(cyl, plan).cpu().numpy()
+    plain = blend.fold_plain(cyl, plan)[0].cpu().numpy()
+    if not (np.array_equal(kernel, host) and np.array_equal(plain, host)):
+        raise AssertionError("pano18 fold: the kernel or plain fold differs "
+                             "from the host fold")
+    by_name = kernel_profile(lambda: blend.compose_mosaic(cyl, plan), reps)
+    per_launch = {}
+    for entry in ("column_occupancy", "fold_step"):
+        n, us = [(n, us) for name, (n, us) in by_name.items()
+                 if entry in name][0]
+        per_launch[entry] = dict(ms=us / n / 1e3, launches=n / reps)
+    kernel_ms, kernel_n = device_profile(
+        lambda: blend.compose_mosaic(cyl, plan), reps)
+    plain_ms, plain_n = device_profile(lambda: blend.fold_plain(cyl, plan), 5)
+    bound, bound_by = bound_ms(images.nbytes + plan.height * plan.width * 3, 0)
+    return dict(images=list(images.shape), canvas=[plan.height, plan.width],
+                steps=len(plan.steps), equal=True,
+                kernel_fold_device_ms=kernel_ms,
+                kernel_fold_device_kernels=kernel_n, kernels=per_launch,
+                plain_fold_device_ms=plain_ms,
+                plain_fold_device_kernels=plain_n,
+                bound_ms=bound, bound_by=bound_by)
+
+
+def fold_row(harris: dict, fold: dict) -> dict:
+    """The kernel row of F1, the fold kernel (two entry points): its
+    launches from the Harris stitch's run (:func:`harris_stitch`), its
+    device ms a fold and a launch at the ``pano18`` shape beside the plain
+    fold's and the byte bound (:func:`pano18_fold`).  It replaces no TPU
+    kernel: the JAX package's fold is XLA ops."""
+    return dict(
+        name="compose_fold", route="cuda",
+        source="vfx_image_stitching_tpu_torch/csrc/compose_fold.cu",
+        replaces=None, launches=harris["fold_launches"], max_abs_err=0.0,
+        ms=fold["kernel_fold_device_ms"], per_launch=fold["kernels"],
+        plain_ms=fold["plain_fold_device_ms"], bound_ms=fold["bound_ms"],
+        bound_by=fold["bound_by"], library_ms=None)
+
+
 def compose_routes(folder: str, reps: int = 3) -> dict:
     """The chain stitched by both backends, whose compose is the device
-    fold (``compose/blend.py``), with and without the step capture
-    (``return_steps=True``), ``reps`` times each in turns, and the host
-    fold (``compose/host.py``, the tests' reference) on the same
-    cylindrical batch and plan, ``reps`` times.  Checks: equal shifts,
-    pairs, panorama and mosaic bytes across the three; 17 steps, the last
-    equal to the mosaic's crop to its local canvas.  Reports each route's
-    compose time (median and all; the stitch's ``compose`` phase, and
-    plan + fold + content bounds for the host fold, whose pull of the
-    batch is reported apart) and the device fold's device ms and device
-    kernels (``compose_mosaic`` + ``mosaic_with_bounds`` on the chain's
-    plan, profiled).  Returns the device route's results."""
+    fold (``compose/blend.py``: the fold kernel), with and without the
+    step capture (``return_steps=True``), ``reps`` times each in turns,
+    and the host fold (``compose/host.py``, the tests' reference) on the
+    same cylindrical batch and plan, ``reps`` times.  Checks: equal
+    shifts, pairs, panorama and mosaic bytes across the three; 17 steps,
+    the last equal to the mosaic's crop to its local canvas.  Reports
+    each route's compose time (median and all; the stitch's ``compose``
+    phase, and plan + fold + content bounds for the host fold, whose pull
+    of the batch is reported apart), the device fold's device ms and
+    device kernels (``compose_mosaic`` + ``mosaic_with_bounds`` on the
+    chain's plan, profiled).  Returns the device route's results."""
     import time
 
     import torch
@@ -2410,7 +2500,9 @@ def main() -> int:
     import tempfile
     import time
 
+    from vfx_image_stitching_tpu_torch.compose import blend
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2443,8 +2535,10 @@ def main() -> int:
 
     t0 = time.time()
     K._library()
+    blend.LIBRARY.load()
     emit(dict(phase="build", seconds=time.time() - t0,
-              ptxas=[ln for ln in K.BUILD_LOG.splitlines() if "Used" in ln]))
+              ptxas=[ln for log in cuda_build.BUILD_LOGS.values()
+                     for ln in log.splitlines() if "Used" in ln]))
 
     dev = torch.device("cuda")
     t_start = time.time()
@@ -2464,6 +2558,8 @@ def main() -> int:
         batch = batch_vmap(folder, e2e)
         harris = harris_stitch(folder, smi)
         refs = compose_routes(folder)
+        fold = pano18_fold()
+        emit(dict(phase="pano18_fold", **fold))
         stage_api(folder, work, refs)
         multi_out, folders, sift_many = multi(work, folder)
         mesh(folder, multi_out, folders, sift_many)
@@ -2494,6 +2590,7 @@ def main() -> int:
                 k: v for k, v in mvmap["kernels"][row["name"]].items()
                 if k in ("rows", "images", "ms", "timed_by", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "max_abs_err")}
+    rows.append(fold_row(harris, fold))
     emit(dict(phase="total", seconds=time.time() - t_start))
     print(smi)
     emit(dict(kernels=rows))

@@ -245,3 +245,205 @@ def test_device_crop_bounds_match_jax_and_host(case):
     assert got == content_bounds_host(img, thr)
     mosaic, bounds = mosaic_with_bounds(torch.as_tensor(img), thr)
     assert np.array_equal(mosaic, img) and bounds == got
+
+
+# ---------------------------------------------------------------------------
+# the fold kernel's Python side (compose/blend.py: fold_kernel): what runs
+# before any launch, on the CPU
+# ---------------------------------------------------------------------------
+
+def _bad_batches():
+    good = np.zeros((3, 12, 16, 3), np.uint8)
+    return {
+        "float": torch.zeros((3, 12, 16, 3), dtype=torch.float32),
+        "three_dims": torch.as_tensor(good[0]),
+        "four_channels": torch.zeros((3, 12, 16, 4), dtype=torch.uint8),
+        "not_contiguous": torch.as_tensor(good).transpose(1, 2),
+        "too_tall": torch.zeros((3, 40, 16, 3), dtype=torch.uint8),
+        "missing_image": torch.as_tensor(good[:2]),
+    }
+
+
+def _small_plan():
+    from vfx_image_stitching_tpu_torch.compose.plan import plan_compose
+
+    return plan_compose(12, 16, 3, [True] * 3, [(6.0, 1.0), (-5.0, 0.5)],
+                        [((9.0, 4.0), (3.0, 3.0)), ((2.0, 5.0), (7.5, 5.0))])
+
+
+@pytest.mark.parametrize("bad", list(_bad_batches()))
+def test_fold_kernel_checks_its_inputs_before_any_launch(bad):
+    """dtype, shape, contiguity and the plan's image indices and canvas
+    are checked in Python before the library is built or a kernel
+    launched, so a bad batch raises on the CPU too."""
+    from vfx_image_stitching_tpu_torch.compose import blend
+
+    before = dict(blend.LAUNCHES)
+    with pytest.raises((TypeError, ValueError)):
+        blend.fold_kernel(_bad_batches()[bad], _small_plan())
+    assert blend.LAUNCHES == before and not blend.LIBRARY.loaded
+
+
+def test_fold_kernel_refuses_a_cpu_batch_and_compose_folds_it_plainly():
+    """A good CPU batch: ``fold_kernel`` refuses it before any launch,
+    and ``compose_mosaic`` takes the plain fold, equal to the host fold,
+    with ``n_fold_kernel_steps`` 0 beside ``n_fold_steps``."""
+    from vfx_image_stitching_tpu_torch.compose import blend
+    from vfx_image_stitching_tpu_torch.compose.host import compose_mosaic_host
+    from vfx_image_stitching_tpu_torch.utils.profiling import request
+
+    images = np.random.default_rng(4).integers(0, 256, (3, 12, 16, 3),
+                                               dtype=np.uint8)
+    plan = _small_plan()
+    before = dict(blend.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        blend.fold_kernel(torch.as_tensor(images), plan)
+    with request() as trace:
+        mosaic, steps = blend.compose_mosaic(torch.as_tensor(images), plan,
+                                             return_steps=True)
+        t = trace.take()
+    assert np.array_equal(mosaic.numpy(), compose_mosaic_host(list(images),
+                                                              plan))
+    plain, plain_steps = blend.fold_plain(torch.as_tensor(images), plan, True)
+    assert np.array_equal(plain.numpy(), mosaic.numpy()) and len(steps) == 2
+    assert all(np.array_equal(a, b) for a, b in zip(steps, plain_steps))
+    assert t["n_fold_kernel_steps"] == 0 and t["n_fold_steps"] == 2
+    assert blend.LAUNCHES == before and not blend.LIBRARY.loaded
+
+
+def test_library_counts_launches_from_threads_and_resets():
+    """``utils/cuda_build.Library``, which the fold's and the SIFT
+    kernels' wrappers share: counts added from many threads at once (the
+    mesh layer's slot threads) all land, ``reset`` zeroes them, and
+    nothing is built or loaded by counting."""
+    import threading
+
+    from vfx_image_stitching_tpu_torch.compose import blend
+    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    from vfx_image_stitching_tpu_torch.utils.cuda_build import CSRC, Library
+
+    lib = Library("count_only", (CSRC / "compose_fold.cu",), (), {},
+                  kernels=("a", "b"))
+
+    def add():
+        for _ in range(500):
+            lib.count("a")
+        lib.count("b")
+
+    threads = [threading.Thread(target=add) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert lib.launches == {"a": 4000, "b": 8} and not lib.loaded
+    lib.reset()
+    assert lib.launches == {"a": 0, "b": 0}
+    assert blend.LAUNCHES is blend.LIBRARY.launches
+    assert K.LAUNCHES is K.LIBRARY.launches
+    assert set(blend.LAUNCHES) == {"compose_column_occupancy",
+                                   "compose_fold_step"}
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fold_launches_give_the_host_folds_offsets_and_band(seed):
+    """On random plans (some offsets past the canvas), each step's launch
+    arguments are the host fold's clamped ``oy`` and ``x0`` (its own
+    clamp), where ``place_on_canvas`` puts the image, and the host fold
+    step changes no column outside the band ``[x0, x0 + W)``."""
+    from vfx_image_stitching_tpu_torch.compose.blend import fold_launches
+    from vfx_image_stitching_tpu_torch.compose.host import (
+        _clamped,
+        _fold_step,
+        _init_canvas,
+    )
+    from vfx_image_stitching_tpu_torch.compose.plan import plan_compose
+    from vfx_image_stitching_tpu_torch.geometry.canvas import place_on_canvas
+
+    images, valid, shifts, pairs = _chain(seed, n=5)
+    n, h, w = images.shape[:3]
+    plan = plan_compose(h, w, n, valid, shifts, pairs)
+    rng = np.random.default_rng(seed)
+    for s in plan.steps[::2]:  # push some offsets past the canvas
+        s.img_off_x += int(rng.integers(-2, 3)) * plan.width
+        s.img_off_y += int(rng.integers(-2, 3)) * plan.height
+    launches = fold_launches(plan, h, w)
+    canvas, occ = _init_canvas(images, plan)
+    for f, s in zip(launches, plan.steps):
+        assert (f.img_index, f.swapped, f.overlap_range) == (
+            s.img_index, s.swapped, s.overlap_range)
+        assert f.oy == _clamped(s.img_off_y, h, plan.height)
+        assert f.x0 == _clamped(s.img_off_x, w, plan.width)
+        assert 0 <= f.oy <= plan.height - h and 0 <= f.x0 <= plan.width - w
+        placed = place_on_canvas(torch.as_tensor(images[f.img_index]),
+                                 plan.height, plan.width, s.img_off_y,
+                                 s.img_off_x).numpy()
+        assert np.array_equal(placed[f.oy:f.oy + h, f.x0:f.x0 + w],
+                              images[f.img_index])
+        prev = canvas.copy()
+        _fold_step(canvas, occ, images[f.img_index], s)
+        changed = np.nonzero((canvas != prev).any(axis=(0, 2)))[0]
+        assert changed.size and f.x0 <= changed.min() <= changed.max() < f.x0 + w
+
+
+def _fold_case_steps(images, plan):
+    """Per step of the host fold: (launch, overlap columns, of them the
+    ones the step leaves empty)."""
+    from vfx_image_stitching_tpu_torch.compose.blend import fold_launches
+    from vfx_image_stitching_tpu_torch.compose.host import (
+        _col_occupancy,
+        _fold_step,
+        _init_canvas,
+    )
+
+    h, w = images.shape[1:3]
+    canvas, occ = _init_canvas(images, plan)
+    out = []
+    for f, s in zip(fold_launches(plan, h, w), plan.steps):
+        img = images[f.img_index]
+        ovl = _col_occupancy(img) & occ[f.x0:f.x0 + w]
+        _fold_step(canvas, occ, img, s)
+        out.append((f, int(ovl.sum()),
+                    int((ovl & ~occ[f.x0:f.x0 + w]).sum())))
+    return out
+
+
+def test_fold_kernel_card_cases_cover_what_they_claim():
+    """The card's fold cases (``utils/synthetic.FOLD_CASES``)
+    hold swapped and unswapped steps; blended steps whose alpha
+    denominator is 0, negative and not an integer; images at the
+    canvas's top and bottom rows and an x offset clamped; a skipped
+    image; a blended column the cast empties; one plan at the
+    benchmark's size (18 images of 512x384, steps of about 246 px); and
+    on each but that one the plain fold equals the host fold."""
+    from vfx_image_stitching_tpu_torch.compose.blend import fold_plain
+    from vfx_image_stitching_tpu_torch.compose.host import compose_mosaic_host
+    from vfx_image_stitching_tpu_torch.utils.synthetic import FOLD_CASES
+
+    steps, skipped, clamped = [], False, False
+    for name, make in FOLD_CASES.items():
+        images, plan = make()
+        n, h, w = images.shape[:3]
+        per_step = _fold_case_steps(images, plan)
+        steps += [(plan, h) + st for st in per_step]
+        read = {0} | {s.img_index for s in plan.steps}
+        skipped |= len(read) < n
+        clamped |= any(s.img_off_x > plan.width - w for s in plan.steps)
+        if name == "pano18":
+            assert (n, h, w) == (18, 512, 384) and len(plan.steps) == 17
+            x0s = [f.x0 for f, _n, _z in per_step]
+            gaps = np.abs(np.diff(x0s))
+            assert all(240 <= g <= 253 for g in gaps)
+            assert all(ov > 0 for _f, ov, _z in per_step)
+            continue
+        plain = fold_plain(torch.as_tensor(images), plan)[0].numpy()
+        assert np.array_equal(plain, compose_mosaic_host(list(images), plan))
+    blended = [(f, ov) for _p, _h, f, ov, _z in steps if ov]
+    assert {f.swapped for f, _ov in blended} == {False, True}
+    ranges = [f.overlap_range for f, _ov in blended]
+    assert 0.0 in ranges and min(ranges) < 0
+    assert any(not float(r).is_integer() for r in ranges)
+    assert any(f.oy == 0 for _p, _h, f, _ov, _z in steps)
+    assert any(f.oy == p.height - h and f.oy > 0
+               for p, h, f, _ov, _z in steps)
+    assert skipped and clamped
+    assert any(z for *_rest, z in steps)

@@ -18,9 +18,10 @@ device kernel per call; the tensor-core
 descriptor histogram within 2e-3 (TF32) and 1e-5 (3xTF32) of its plain
 version's maximum.  The Harris backend (plain tensor ops) on the card
 against the CPU: keypoints equal, descriptors within 1e-5, a chain's
-shifts, pairs and panorama bytes equal.  The device compose (plain
-tensor ops) on the card byte-equal to the host fold, steps and crop
-bounds included; both compose routes, the step capture and the stage
+shifts, pairs and panorama bytes equal.  The device compose (the fold
+kernel, ``compose/blend.py``) on the card byte-equal to the host fold
+and the CPU's plain fold, steps and crop bounds included, one launch a
+step; both compose routes, the step capture and the stage
 API equal to the CPU's stitch for both backends; ``stitch_many`` equal to
 the loop of ``stitch_panorama``.  The mesh layer on two logical slots of
 the card equal to the unsharded step and ``stitch_many``, and its batched
@@ -37,6 +38,8 @@ test, equal to the CPU's.
 import numpy as np
 import pytest
 import torch
+
+from vfx_image_stitching_tpu_torch.utils.synthetic import FOLD_CASES
 
 pytestmark = pytest.mark.cuda
 
@@ -641,7 +644,7 @@ def test_harris_stitch_on_cuda_matches_cpu(dev, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# device compose, the stage split, stitch_many (plain tensor ops)
+# device compose (the fold kernel), the stage split, stitch_many
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("seed", range(3))
@@ -679,6 +682,60 @@ def test_device_compose_on_cuda_matches_host_fold(dev, seed):
                                            return_steps=True)
     assert all(np.array_equal(a, b) for a, b in zip(steps, cpu_steps))
     assert crop_bounds(mosaic, 0) == content_bounds_host(host, 0)
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_fold_kernel_matches_host_and_plain_fold(dev, case):
+    """``compose_mosaic`` on the card, which folds by the kernel, with and
+    without the step capture: the mosaic equal to the host fold's and to
+    the plain fold's on the CPU, the steps to the plain fold's; one
+    occupancy launch and one launch a step per fold;
+    ``n_fold_kernel_steps`` equal to ``n_fold_steps``."""
+    from vfx_image_stitching_tpu_torch.compose import blend
+    from vfx_image_stitching_tpu_torch.compose.host import compose_mosaic_host
+    from vfx_image_stitching_tpu_torch.utils.profiling import request
+
+    images, plan = FOLD_CASES[case]()
+    host = compose_mosaic_host(list(images), plan)
+    cpu_mosaic, cpu_steps = blend.compose_mosaic(
+        torch.as_tensor(images), plan, return_steps=True)
+    assert np.array_equal(cpu_mosaic.numpy(), host)
+    before = dict(blend.LAUNCHES)
+    with request() as trace:
+        cuda_images = torch.as_tensor(images, device=dev)
+        mosaic, steps = blend.compose_mosaic(cuda_images, plan,
+                                             return_steps=True)
+        alone = blend.compose_mosaic(cuda_images, plan)
+        torch.cuda.synchronize()
+        t = trace.take()
+    assert np.array_equal(mosaic.cpu().numpy(), host)
+    assert np.array_equal(alone.cpu().numpy(), host)
+    assert len(steps) == len(cpu_steps) == len(plan.steps)
+    assert all(np.array_equal(a, b) for a, b in zip(steps, cpu_steps))
+    n = len(plan.steps)
+    assert blend.LAUNCHES["compose_column_occupancy"] == (
+        before["compose_column_occupancy"] + 2)
+    assert blend.LAUNCHES["compose_fold_step"] == (
+        before["compose_fold_step"] + 2 * n)
+    assert t["n_fold_kernel_steps"] == t["n_fold_steps"] == 2 * n
+
+
+def test_stitch_on_cuda_folds_with_the_kernel(dev, tmp_path):
+    """A stitch on the card folds every step by the kernel
+    (``n_fold_kernel_steps == n_fold_steps``) and puts no host value on
+    the device for the fold: the images, their maps and the padding
+    indices only."""
+    from vfx_image_stitching_tpu_torch.pipeline import stitch_panorama
+    from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
+
+    synth_chain(str(tmp_path), 4, 96, 128, seed=5, focal=300.0)
+    gpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cuda").timings
+    cpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cpu").timings
+    assert gpu["n_fold_kernel_steps"] == gpu["n_fold_steps"] == 3
+    assert cpu["n_fold_kernel_steps"] == 0 and cpu["n_fold_steps"] == 3
+    # the plain fold counts one 8-byte overlap range a step
+    assert cpu["n_h2d"] - gpu["n_h2d"] == 3
+    assert cpu["h2d_bytes"] - gpu["h2d_bytes"] == 3 * 8
 
 
 @pytest.mark.parametrize("backend", ["harris", "sift"])

@@ -51,7 +51,8 @@ EXTRACT_SPANS = {
 COUNTERS = (
     "n_images", "n_decode_failed", "n_maps_built", "n_maps_cached",
     "h2d_bytes", "n_h2d", "d2h_bytes", "n_d2h",
-    "n_fold_steps", "esc_n_pairs", "esc_n_rows", "passes",
+    "n_fold_steps", "n_fold_kernel_steps", "esc_n_pairs", "esc_n_rows",
+    "passes",
 )
 # the phases with sub-spans, and the spans directly below each
 SUB_SPANS = {
@@ -114,6 +115,8 @@ def test_stitch_fills_every_span_and_counter(chain, backend):
     assert t["total"] == pytest.approx(sum(t[k] for k in ST.PASS_PHASES))
     assert t["n_images"] == N and t["n_decode_failed"] == 0
     assert t["n_fold_steps"] == N - 1 and t["passes"] == 1
+    # the CPU folds plainly; the kernel folds only on the card
+    assert t["n_fold_kernel_steps"] == 0
     # the pair step's 7 result arrays, the mosaic and its bounds, and on
     # SIFT the capacity stats
     assert t["n_d2h"] == 9 if backend == "harris" else t["n_d2h"] > 9

@@ -24,6 +24,12 @@ def pad_amounts(move: float) -> Tuple[int, int]:
     return (max(m, 0), abs(m))
 
 
+def clamp_offset(off: int, extent: int, limit: int) -> int:
+    """An offset clamped so ``extent`` pixels fit in ``limit``, as the
+    JAX package's ``lax.dynamic_update_slice`` clamps its start."""
+    return min(max(int(off), 0), limit - extent)
+
+
 def place_on_canvas(
     img: torch.Tensor, canvas_h: int, canvas_w: int, off_y: int, off_x: int
 ) -> torch.Tensor:
@@ -35,8 +41,8 @@ def place_on_canvas(
     the exact union, so the clamp never moves planned content.
     """
     h, w = img.shape[:2]
-    oy = min(max(int(off_y), 0), canvas_h - h)
-    ox = min(max(int(off_x), 0), canvas_w - w)
+    oy = clamp_offset(off_y, h, canvas_h)
+    ox = clamp_offset(off_x, w, canvas_w)
     canvas = torch.zeros((canvas_h, canvas_w) + tuple(img.shape[2:]),
                          dtype=img.dtype, device=img.device)
     canvas[oy:oy + h, ox:ox + w] = img
