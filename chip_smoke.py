@@ -47,14 +47,19 @@ profiled run, idle share, the CPU's shifts, pairs and bytes equal).  Each
 path's run must launch its kernels and no other (``PATHS``; the Harris
 stitch none of the SIFT library's), the SIFT and Harris stitches the
 fold kernel once for the occupancy and once a step
-(``check_fold_launches``), and each kernel row reports the launches of
-its path's run.  Then the rest of the stitch surface on the chain:
+(``check_fold_launches``), the Harris stitch the response kernel once
+over all its images (``check_harris_launches``), and each kernel row
+reports the launches of its path's run.  Then the rest of the stitch surface on the chain:
 ``compose_routes`` (both backends' stitches, whose compose is the
 device fold, with and without the step capture, against the host fold
 on the same plan: equal bytes, 17 steps, each route's compose time, the
 device fold's device time and kernels), ``pano18_fold`` (at the
 benchmark's shape the fold kernel's and the plain fold's device time
 and kernels beside the byte bound; the kernel row ``compose_fold``),
+``harris_response`` (at the same shape the Harris response kernel
+bit-equal to its plain version, its ms a launch beside the plain
+version's device time and kernels and the bound of
+``bench_port/harness/roofline.py``; the kernel row ``harris_response``),
 ``stage_api``
 (``compute_pairwise_shifts`` + ``finalize_to_panorama`` against
 ``stitch_panorama``, a saved ``.png``),
@@ -151,7 +156,8 @@ PATHS = {
     # K5 here only for the A/B against P1 on the same rows
     "probe_desc": ("desc_scratch_dot", "descriptor_histograms"),
     # the Harris stitch launches none of these (its fold's kernels count
-    # in compose/blend.py's LAUNCHES: check_fold_launches)
+    # in compose/blend.py's LAUNCHES, its response kernel in
+    # models/harris.py's: check_fold_launches, check_harris_launches)
     "harris": (),
     # find_scale_space_extrema + generate_descriptors on one image
     "stages": ("localize_newton_resident", "orientation_histograms",
@@ -223,6 +229,18 @@ def check_fold_launches(path: str, res, launches: dict) -> None:
             f"{path}: fold launches {launches}, n_fold_steps {steps}, "
             f"n_fold_kernel_steps {res.timings['n_fold_kernel_steps']}; "
             f"expected {want}")
+
+
+def check_harris_launches(path: str, res, launches: dict) -> None:
+    """One Harris stitch of the chain on the card computed its response by
+    the kernel (``models/harris.py``'s ``LAUNCHES``, counted from 0 before
+    it): one launch over all its images (``n_harris_kernel_images``)."""
+    if (launches != {"harris_response": 1}
+            or res.timings["n_harris_kernel_images"] != N_IMAGES):
+        raise AssertionError(
+            f"{path}: response launches {launches}, n_harris_kernel_images "
+            f"{res.timings['n_harris_kernel_images']}; expected one launch "
+            f"over {N_IMAGES} images")
 
 
 def bound_ms(n_bytes: float, n_flops: float, tf32_flops: float = 0.0):
@@ -1473,26 +1491,31 @@ def extraction_contract(gpu, cpu) -> dict:
 def harris_stitch(folder: str, card: str, timed_runs: int = 3) -> dict:
     """The chain stitched with the Harris backend (the reference's
     default, ``max_points`` = 200) on the card: one warm-up run with the
-    launch counts at 0 (no SIFT kernel may launch, and the fold kernel's
-    launches are one a step and one for the occupancy), all 17 pairs
+    launch counts at 0 (no SIFT kernel may launch, the fold kernel's
+    launches are one a step and one for the occupancy, the response
+    kernel's one), all 17 pairs
     matched, ``timed_runs`` timed runs identical to it, one
     profiled stitch (device time, device kernels, idle share), and the
     chain on the CPU with equal shifts and pairs and the same bytes."""
     import time
 
     from vfx_image_stitching_tpu_torch.compose import blend
+    from vfx_image_stitching_tpu_torch.models import harris as TH
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
     K.reset_launch_counts()
     blend.reset_launch_counts()
+    TH.reset_launch_counts()
     t0 = time.time()
     res = run_stitch(folder, "cuda", "harris")
     first_s = time.time() - t0
     launches = dict(K.LAUNCHES)
     fold_launches = dict(blend.LAUNCHES)
+    harris_launches = dict(TH.LAUNCHES)
     check_result(res, N_IMAGES)
     check_launches("harris", launches)
     check_fold_launches("harris", res, fold_launches)
+    check_harris_launches("harris", res, harris_launches)
     runs = []
     for _ in range(timed_runs):
         t0 = time.time()
@@ -1521,6 +1544,7 @@ def harris_stitch(folder: str, card: str, timed_runs: int = 3) -> dict:
         device_idle_share=prof["device_idle_share"],
         profiled_wall_s=prof["profiled_wall_s"], top=prof["top"],
         launches=launches, fold_launches=fold_launches,
+        harris_launches=harris_launches,
         panorama=list(res.panorama.shape), cpu_equal=same, cpu_s=cpu_s, shifts=res.shifts, cpu_shifts=cpu.shifts)
     emit(out)
     if not same:
@@ -1619,6 +1643,68 @@ def fold_row(harris: dict, fold: dict) -> dict:
         ms=fold["kernel_fold_device_ms"], per_launch=fold["kernels"],
         plain_ms=fold["plain_fold_device_ms"], bound_ms=fold["bound_ms"],
         bound_by=fold["bound_by"], library_ms=None)
+
+
+def harris_ops_per_pixel(ntaps: int) -> int:
+    """f32 operations of the Harris response per pixel, each counted once
+    as the plain version runs it: the two gradients (two products and a
+    sum each), the three structure products, two blur passes of each
+    (``ntaps`` products and ``ntaps - 1`` sums a pass), and the response
+    (four products, a difference, a sum, a difference)."""
+    return 6 + 3 + 3 * 2 * (2 * ntaps - 1) + 7
+
+
+def pano18_harris_response(reps: int = 20) -> dict:
+    """The Harris response at the benchmark's ``pano18`` shape (the 18
+    images of 512x384 of ``utils/synthetic.pano18_fold_inputs``) at the
+    default config: the kernel bit-equal to the plain version on the same
+    CUDA batch; the kernel's device ms a launch (one device kernel a
+    call) beside the plain version's device ms and kernels; the bound of
+    ``bench_port/harness/roofline.py``: the BGR bytes read once and ix,
+    iy and r written once, or the plain version's f32 operations
+    (:func:`harris_ops_per_pixel`), the larger."""
+    import torch
+
+    from bench_port.harness.roofline import bound_ms as roofline_bound_ms
+    from vfx_image_stitching_tpu_torch.config import HarrisConfig
+    from vfx_image_stitching_tpu_torch.models import harris as TH
+    from vfx_image_stitching_tpu_torch.utils.synthetic import (
+        pano18_fold_inputs,
+    )
+
+    cfg = HarrisConfig()
+    images = torch.as_tensor(pano18_fold_inputs()[0]).cuda()
+    n, h, w = images.shape[:3]
+    kernel = TH.harris_response_kernel(images, cfg)
+    plain = TH.harris_response_plain(images, cfg)
+    if not all(torch.equal(a, b.reshape(a.shape))
+               for a, b in zip(kernel, plain)):
+        raise AssertionError("pano18 Harris response: the kernel differs "
+                             "from the plain version")
+    ms = one_kernel_ms(lambda: TH.harris_response_kernel(images, cfg),
+                       "harris_response", reps, launches=TH.LAUNCHES)
+    plain_ms, plain_n = device_profile(
+        lambda: TH.harris_response_plain(images, cfg), 5)
+    ops = n * h * w * harris_ops_per_pixel(len(TH._structure_taps(cfg)))
+    n_bytes = images.numel() + 3 * n * h * w * 4
+    bound, bound_by = roofline_bound_ms(n_bytes, ops)
+    return dict(images=list(images.shape), equal=True, kernel_ms=ms,
+                plain_ms=plain_ms, plain_device_kernels=plain_n,
+                bytes=n_bytes, flops=ops, bound_ms=bound, bound_by=bound_by)
+
+
+def harris_response_row(harris: dict, resp: dict) -> dict:
+    """The kernel row of H1, the Harris response kernel: its launches from
+    the Harris stitch's run (:func:`harris_stitch`), its ms a launch at the
+    ``pano18`` shape beside the plain version's and the bound
+    (:func:`pano18_harris_response`).  It replaces no TPU kernel: the JAX
+    package's Harris is XLA ops."""
+    return dict(
+        name="harris_response", route="cuda",
+        source="vfx_image_stitching_tpu_torch/csrc/harris_response.cu",
+        replaces=None, launches=harris["harris_launches"], max_abs_err=0.0,
+        ms=resp["kernel_ms"], plain_ms=resp["plain_ms"],
+        bound_ms=resp["bound_ms"], bound_by=resp["bound_by"], library_ms=None)
 
 
 def compose_routes(folder: str, reps: int = 3) -> dict:
@@ -2501,6 +2587,7 @@ def main() -> int:
     import time
 
     from vfx_image_stitching_tpu_torch.compose import blend
+    from vfx_image_stitching_tpu_torch.models import harris as TH
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
     from vfx_image_stitching_tpu_torch.utils import cuda_build
 
@@ -2536,6 +2623,7 @@ def main() -> int:
     t0 = time.time()
     K._library()
     blend.LIBRARY.load()
+    TH.LIBRARY.load()
     emit(dict(phase="build", seconds=time.time() - t0,
               ptxas=[ln for log in cuda_build.BUILD_LOGS.values()
                      for ln in log.splitlines() if "Used" in ln]))
@@ -2560,6 +2648,8 @@ def main() -> int:
         refs = compose_routes(folder)
         fold = pano18_fold()
         emit(dict(phase="pano18_fold", **fold))
+        resp = pano18_harris_response()
+        emit(dict(phase="harris_response", **resp))
         stage_api(folder, work, refs)
         multi_out, folders, sift_many = multi(work, folder)
         mesh(folder, multi_out, folders, sift_many)
@@ -2591,6 +2681,7 @@ def main() -> int:
                 if k in ("rows", "images", "ms", "timed_by", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "max_abs_err")}
     rows.append(fold_row(harris, fold))
+    rows.append(harris_response_row(harris, resp))
     emit(dict(phase="total", seconds=time.time() - t_start))
     print(smi)
     emit(dict(kernels=rows))

@@ -16,9 +16,13 @@ float-lane Newton kernel bit for bit (P4 also against
 K1, on long walks, at the stack's edges, at 4 and 6 layers), each one
 device kernel per call; the tensor-core
 descriptor histogram within 2e-3 (TF32) and 1e-5 (3xTF32) of its plain
-version's maximum.  The Harris backend (plain tensor ops) on the card
+version's maximum.  The Harris response kernel
+(``csrc/harris_response.cu``) bit-equal to its plain version on the same
+CUDA tensor (the ``pano18`` shape, odd sizes, an image shorter than the
+blur's pad, gray input, extra leading dims, a blur other than 21 taps),
+one device kernel a call; the Harris backend on the card
 against the CPU: keypoints equal, descriptors within 1e-5, a chain's
-shifts, pairs and panorama bytes equal.  The device compose (the fold
+shifts, pairs and panorama bytes equal, one response launch a stitch.  The device compose (the fold
 kernel, ``compose/blend.py``) on the card byte-equal to the host fold
 and the CPU's plain fold, steps and crop bounds included, one launch a
 step; both compose routes, the step capture and the stage
@@ -51,13 +55,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _one_device_kernel(fn, counter: str) -> bool:
+def _one_device_kernel(fn, counter: str, launches: dict | None = None) -> bool:
     """Whether a call of ``fn``, a call of the wrapper that counts its
-    launches in ``LAUNCHES[counter]``, runs exactly one device kernel
-    (``timing.one_kernel_ms`` raises if not)."""
+    launches in ``launches[counter]`` (by default the SIFT library's
+    ``LAUNCHES``), runs exactly one device kernel (``timing.one_kernel_ms``
+    raises if not)."""
     from vfx_image_stitching_tpu_torch.utils.timing import one_kernel_ms
 
-    return one_kernel_ms(fn, counter, reps=5) > 0
+    return one_kernel_ms(fn, counter, reps=5, launches=launches) > 0
 
 
 def _octave0(dev, h=96, w=128, seed=0):
@@ -595,13 +600,82 @@ def test_desc_scratch_dot_kernel_masked_and_edges(dev, highest):
 
 
 # ---------------------------------------------------------------------------
-# Harris backend (plain tensor ops, no kernel of this repository)
+# Harris backend (the response kernel, csrc/harris_response.cu; the rest
+# plain tensor ops)
 # ---------------------------------------------------------------------------
+
+def _harris_response_case(case):
+    """(images, config) of a response-kernel case: the benchmark's
+    ``pano18`` batch (18 x 512 x 384, noise with black edge columns); three
+    scenes of 192x256; an odd 97x131 image; 7x40 and 40x7 crops, shorter
+    than the 21-tap blur's 10-px pad on one axis (the reflection repeats);
+    a gray (N, H, W) batch; extra leading dims; a 9-tap and a 4-tap blur
+    (the kernel's runtime tap count)."""
+    from vfx_image_stitching_tpu_torch.config import HarrisConfig
+    from vfx_image_stitching_tpu_torch.utils.synthetic import (
+        make_scene,
+        pano18_fold_inputs,
+    )
+
+    cfg = HarrisConfig()
+    rng = np.random.default_rng(22)
+    if case == "pano18":
+        return pano18_fold_inputs()[0], cfg
+    if case == "scene":
+        return np.stack([make_scene(192, 256, s) for s in range(3)]), cfg
+    if case == "odd":
+        return make_scene(97, 131, 5), cfg
+    if case == "short":
+        return np.ascontiguousarray(make_scene(64, 40, 1)[:7]), cfg
+    if case == "narrow":
+        return np.ascontiguousarray(
+            make_scene(64, 40, 2)[:7].transpose(1, 0, 2)), cfg
+    if case == "gray":
+        return rng.integers(0, 256, (3, 50, 70), dtype=np.uint8), cfg
+    if case == "lead":
+        return rng.integers(0, 256, (2, 2, 33, 65, 3), dtype=np.uint8), cfg
+    if case == "taps9":
+        return make_scene(97, 131, 6), HarrisConfig(block_size=9)
+    return make_scene(45, 70, 6), HarrisConfig(block_size=4)
+
+
+@pytest.mark.parametrize("case", ["pano18", "scene", "odd", "short", "narrow",
+                                  "gray", "lead", "taps9", "taps4"])
+def test_harris_response_kernel_matches_plain(dev, case):
+    """``harris_corners`` on a CUDA tensor, whose response is the kernel's
+    (one launch), against the plain version on the same CUDA tensor:
+    ``ix``, ``iy`` and the response bit-equal; its corners equal to the
+    CPU's; the kernel one device kernel a call on a contiguous batch;
+    repeated runs identical."""
+    from vfx_image_stitching_tpu_torch.models import harris as TH
+
+    images, cfg = _harris_response_case(case)
+    img = torch.as_tensor(images, device=dev)
+    ix, iy, r = TH.harris_response_plain(img, cfg)
+    h, w = ix.shape[-2:]
+    before = TH.LAUNCHES["harris_response"]
+    got = TH.harris_corners(img, cfg)
+    assert TH.LAUNCHES["harris_response"] == before + 1
+    assert torch.equal(got[4][0], ix) and torch.equal(got[4][1], iy)
+    cpu = TH.harris_corners(img.cpu(), cfg)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got[:4], cpu[:4]))
+    batch = (img.reshape(-1, h, w, 3) if TH._is_bgr(img)
+             else img.reshape(-1, h, w))
+    out = TH.harris_response_kernel(batch, cfg)
+    for a, b in zip(out, (ix, iy, r)):
+        assert torch.equal(a, b.reshape(a.shape))
+    for a, b in zip(out, TH.harris_response_kernel(batch, cfg)):
+        assert torch.equal(a, b)
+    # a strided batch (make_scene's images) costs the wrapper a copy first
+    batch = batch.contiguous()
+    assert _one_device_kernel(lambda: TH.harris_response_kernel(batch, cfg),
+                              "harris_response", TH.LAUNCHES)
+
 
 def test_harris_batch_on_cuda_matches_cpu(dev):
     """``harris_batch`` on the card against the CPU on a synthetic batch:
-    keypoints, validity and response equal (the blurs are elementwise
-    IEEE ops in the same order), descriptors within the reference's 1e-5
+    keypoints, validity and response equal (the response kernel's sums
+    are IEEE ops in the plain order), descriptors within the reference's 1e-5
     (reduction order); repeated runs bit-identical."""
     from vfx_image_stitching_tpu_torch.models.harris import (
         harris_batch,
@@ -625,17 +699,23 @@ def test_harris_batch_on_cuda_matches_cpu(dev):
 def test_harris_stitch_on_cuda_matches_cpu(dev, tmp_path):
     """A small chain stitched with Harris (the default backend) on the card
     and on the CPU: equal shifts and pairs, byte-identical panorama; a
-    repeat on the card is identical; none of the repository's kernels
-    launches."""
+    repeat on the card is identical; none of the SIFT library's kernels
+    launches, the Harris response kernel once a stitch, over every image
+    (``n_harris_kernel_images``; 0 on the CPU)."""
+    from vfx_image_stitching_tpu_torch.models import harris as TH
     from vfx_image_stitching_tpu_torch.models.sift import kernels as K
     from vfx_image_stitching_tpu_torch.pipeline.stitch import stitch_panorama
     from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
 
     synth_chain(str(tmp_path), 4, 128, 168, seed=11, focal=300.0)
     before = dict(K.LAUNCHES)
+    harris_before = TH.LAUNCHES["harris_response"]
     gpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cuda")
     assert K.LAUNCHES == before
+    assert TH.LAUNCHES["harris_response"] == harris_before + 1
+    assert gpu.timings["n_harris_kernel_images"] == 4
     cpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cpu")
+    assert cpu.timings["n_harris_kernel_images"] == 0
     again = stitch_panorama(str(tmp_path), crop_margin=8, device="cuda")
     assert all(p is not None for p in gpu.pairs)
     assert gpu.shifts == cpu.shifts and gpu.pairs == cpu.pairs
@@ -724,8 +804,13 @@ def test_stitch_on_cuda_folds_with_the_kernel(dev, tmp_path):
     """A stitch on the card folds every step by the kernel
     (``n_fold_kernel_steps == n_fold_steps``) and puts no host value on
     the device for the fold: the images, their maps and the padding
-    indices only."""
+    indices only (on the card none for the Harris response, whose
+    kernel reflects its borders itself)."""
+    from vfx_image_stitching_tpu_torch.models.harris import (
+        harris_response_plain,
+    )
     from vfx_image_stitching_tpu_torch.pipeline import stitch_panorama
+    from vfx_image_stitching_tpu_torch.utils.profiling import request
     from vfx_image_stitching_tpu_torch.utils.synthetic import synth_chain
 
     synth_chain(str(tmp_path), 4, 96, 128, seed=5, focal=300.0)
@@ -733,9 +818,13 @@ def test_stitch_on_cuda_folds_with_the_kernel(dev, tmp_path):
     cpu = stitch_panorama(str(tmp_path), crop_margin=8, device="cpu").timings
     assert gpu["n_fold_kernel_steps"] == gpu["n_fold_steps"] == 3
     assert cpu["n_fold_kernel_steps"] == 0 and cpu["n_fold_steps"] == 3
-    # the plain fold counts one 8-byte overlap range a step
-    assert cpu["n_h2d"] - gpu["n_h2d"] == 3
-    assert cpu["h2d_bytes"] - gpu["h2d_bytes"] == 3 * 8
+    # the plain fold counts one 8-byte overlap range a step, the plain
+    # Harris response its padding indices
+    with request() as trace:
+        harris_response_plain(torch.zeros((4, 96, 128, 3), dtype=torch.uint8))
+        plain = trace.take()
+    assert cpu["n_h2d"] - gpu["n_h2d"] == 3 + plain["n_h2d"]
+    assert cpu["h2d_bytes"] - gpu["h2d_bytes"] == 3 * 8 + plain["h2d_bytes"]
 
 
 @pytest.mark.parametrize("backend", ["harris", "sift"])

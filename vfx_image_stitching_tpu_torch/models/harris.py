@@ -15,15 +15,45 @@ function.  The reference behaviour it replicates:
     ``(argmax+0.5)*45``, angle-shifted (not rotated) 4x4 cells x 8 bins =
     128-d, normalize -> clip 0.2 -> renormalize.
 
-Plain PyTorch on the input's device, no kernel of this repository: every
-function takes leading batch dimensions (the JAX package's ``vmap``), so
-:func:`harris_batch` runs a whole (N, H, W, 3) batch as one set of ops.
-The keypoint capacity is fixed at ``max_points`` with a validity mask.
+Plain PyTorch on the input's device, but for the corner response on the
+card: every function takes leading batch dimensions (the JAX package's
+``vmap``), so :func:`harris_batch` runs a whole (N, H, W, 3) batch as one
+set of ops.  The keypoint capacity is fixed at ``max_points`` with a
+validity mask.
+
+The response (gray, gradients, the three blurred structure products and
+``R``) of a CUDA batch is one launch of the hand-written kernel of
+``csrc/harris_response.cu`` (:func:`harris_response_kernel`, its own
+small library); of a CPU batch it is :func:`harris_response_plain`, the
+tensor ops the CPU tests hold against the JAX package.  The device is the
+only switch, so every caller on the card (the stitch, ``stitch_many``,
+the mesh and batched multi-panorama steps, the visualizers) takes the
+kernel.  The kernel replaces no TPU kernel (the JAX package's Harris is
+XLA ops); it replaces the plain version's about 285 full-field passes
+(three 21-tap blurs of two passes, each pass 21 scalar products and 20
+adds, plus the padding gathers, casts, gradients and response) over an
+(N, H, W) float32 field, about 8.7 GB of traffic for 18 images of
+512x384.  Its bound is bytes: the BGR
+bytes read once and ``ix``, ``iy`` and ``r`` written once, 53 MB there,
+about 16 us at 3.35 TB/s (its 0.9 GFLOP of separate float32 operations
+take about 14 us at 67 TFLOP/s, twice that without fused multiply-adds).
+The design: one block per 32x32 output tile of an image stages the gray
+image of the tile and its halo (10 pixels for the 21-tap blur, one more
+for the gradients, clipped to the image; the reflected borders land
+inside it) in shared memory once, forms the gradients over the halo
+there, then runs the vertical pass into shared memory (each thread a
+column and 8 rows, each gradient loaded once and slid over the taps) and
+the horizontal pass in registers (4 columns a thread) with the response,
+and writes ``ix``, ``iy`` and ``r`` once.  No atomics, no reduction
+across blocks.  Every operation is one IEEE float32 rounding in the plain
+version's order (``-fmad=false``), so its outputs are the plain
+version's bits.
 
 Numerics, against the JAX package run op by op:
 
   * the blurs are ``ops/gaussian.gaussian_blur``'s shifted adds in tap
-    order, so gradients, structure tensor and response are bit-exact;
+    order (the kernel's sums follow it), so gradients, structure tensor
+    and response are bit-exact;
   * NMS is ``max_pool2d`` (``-inf`` padding, the reduce-window's SAME);
   * top-k is the first ``max_points`` of a stable descending sort: ties,
     the ``-inf`` rows included, in ascending index order, as
@@ -37,21 +67,128 @@ Numerics, against the JAX package run op by op:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vfx_image_stitching_tpu_torch.config import HarrisConfig
-from vfx_image_stitching_tpu_torch.ops.color import bgr_to_gray_f32
-from vfx_image_stitching_tpu_torch.ops.gaussian import gaussian_blur
+from vfx_image_stitching_tpu_torch.ops.color import (
+    bgr_to_gray_f32,
+    bgr_to_gray_u8,
+)
+from vfx_image_stitching_tpu_torch.ops.gaussian import (
+    cv2_auto_ksize,
+    gaussian_blur,
+    gaussian_kernel1d,
+)
 from vfx_image_stitching_tpu_torch.ops.gradients import (
     calc_orientation,
     reference_gradients,
 )
-from vfx_image_stitching_tpu_torch.utils.profiling import span
+from vfx_image_stitching_tpu_torch.utils import cuda_build
+from vfx_image_stitching_tpu_torch.utils.profiling import count, span
 
 _NEG_INF = float("-inf")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIBRARY = cuda_build.Library(
+    "harris_response", (cuda_build.CSRC / "harris_response.cu",), (),
+    signatures={"harris_response": (_P, _I, _I, _I, _I, _P, _I,
+                                    ctypes.c_float, _P, _P, _P, _P)},
+    kernels=("harris_response",))
+# Launch counts of the response kernel: the wrapper adds one where it
+# launches (the plain version on CPU tensors does not count).
+LAUNCHES = LIBRARY.launches
+reset_launch_counts = LIBRARY.reset
+# the longest structure blur the kernel takes (kMaxTaps in the source)
+MAX_TAPS = 63
+
+
+def _structure_taps(cfg: HarrisConfig) -> np.ndarray:
+    """The structure blur's float32 taps as ``gaussian_blur`` applies them:
+    ``block_size`` (cv2's auto size if None), and no blur, a single tap of
+    1 (exact), at a size of 1 or less."""
+    ksize = cfg.block_size
+    if ksize is None:
+        ksize = cv2_auto_ksize(cfg.gauss_sigma)
+    if ksize <= 1:
+        return np.ones(1, dtype=np.float32)
+    return gaussian_kernel1d(ksize, cfg.gauss_sigma)
+
+
+def _is_bgr(img: torch.Tensor) -> bool:
+    """``bgr_to_gray_u8``'s rule: a trailing axis of 3 is BGR."""
+    return img.ndim >= 3 and img.shape[-1] == 3
+
+
+def harris_response_plain(
+    img_bgr: torch.Tensor, cfg: HarrisConfig = HarrisConfig()
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(ix, iy, r)`` of (..., H, W, 3) uint8 BGR images (or gray ones) in
+    plain tensor ops on their device: the (..., H, W) gradients and the
+    (M, H, W) response, M the images."""
+    gray = bgr_to_gray_f32(img_bgr)
+    h, w = gray.shape[-2:]
+    ix, iy = reference_gradients(gray)
+    ix2 = gaussian_blur(ix * ix, cfg.gauss_sigma, cfg.block_size)
+    iy2 = gaussian_blur(iy * iy, cfg.gauss_sigma, cfg.block_size)
+    ixy = gaussian_blur(ix * iy, cfg.gauss_sigma, cfg.block_size)
+
+    det = ix2 * iy2 - ixy * ixy
+    tr = ix2 + iy2
+    r = (det - cfg.k * (tr * tr)).reshape(-1, h, w)
+    return ix, iy, r
+
+
+def _check_response_input(images: torch.Tensor, cfg: HarrisConfig) -> int:
+    """Raise unless ``images`` is what the kernel takes: an (N, H, W, 3)
+    BGR or (N, H, W) gray uint8 batch with no empty axis, and a structure
+    blur of at most ``MAX_TAPS`` taps.  Returns the channel count."""
+    if images.dtype != torch.uint8:
+        raise TypeError(
+            f"harris_response_kernel: expected uint8, got {images.dtype}")
+    if images.ndim == 4 and images.shape[-1] == 3:
+        channels = 3
+    elif images.ndim == 3:
+        channels = 1
+    else:
+        raise ValueError("harris_response_kernel: expected (N, H, W, 3) BGR "
+                         f"or (N, H, W) gray, got {tuple(images.shape)}")
+    if images.numel() == 0:
+        raise ValueError(f"harris_response_kernel: empty batch "
+                         f"{tuple(images.shape)}")
+    taps = len(_structure_taps(cfg))
+    if taps > MAX_TAPS:
+        raise ValueError(f"harris_response_kernel: a {taps}-tap structure "
+                         f"blur exceeds the kernel's {MAX_TAPS}")
+    return channels
+
+
+def harris_response_kernel(
+    images: torch.Tensor, cfg: HarrisConfig = HarrisConfig()
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(ix, iy, r)``, each (N, H, W) float32, of a CUDA batch by the
+    kernel of ``csrc/harris_response.cu``: one launch on the batch's
+    device and its current stream, bit-equal to
+    :func:`harris_response_plain`.  Counts ``n_harris_kernel_images``."""
+    channels = _check_response_input(images, cfg)
+    if images.device.type != "cuda":
+        raise ValueError("harris_response_kernel: expected a CUDA batch (a "
+                         "CPU batch takes harris_response_plain)")
+    images = images.contiguous()
+    n, h, w = images.shape[:3]
+    taps = _structure_taps(cfg)
+    ix, iy, r = torch.empty((3, n, h, w), dtype=torch.float32,
+                            device=images.device)
+    LIBRARY.launch("harris_response", images.device, "harris_response",
+                   images.data_ptr(), n, h, w, channels, taps.ctypes.data,
+                   len(taps), cfg.k, ix.data_ptr(), iy.data_ptr(),
+                   r.data_ptr())
+    count("n_harris_kernel_images", n)
+    return ix, iy, r
 
 
 def harris_corners(
@@ -63,19 +200,25 @@ def harris_corners(
 
     Returns ``(yy, xx, response, valid, (ix, iy))`` with (..., max_points)
     lanes ordered by response descending (row-major on ties) and the
-    (..., H, W) gradient fields.
+    (..., H, W) gradient fields.  The response is
+    :func:`harris_response_kernel`'s on a CUDA input and
+    :func:`harris_response_plain`'s elsewhere (``n_harris_kernel_images``
+    0).
     """
-    gray = bgr_to_gray_f32(img_bgr)
-    h, w = gray.shape[-2:]
-    lead = gray.shape[:-2]
-    ix, iy = reference_gradients(gray)
-    ix2 = gaussian_blur(ix * ix, cfg.gauss_sigma, cfg.block_size)
-    iy2 = gaussian_blur(iy * iy, cfg.gauss_sigma, cfg.block_size)
-    ixy = gaussian_blur(ix * iy, cfg.gauss_sigma, cfg.block_size)
-
-    det = ix2 * iy2 - ixy * ixy
-    tr = ix2 + iy2
-    r = (det - cfg.k * (tr * tr)).reshape(-1, h, w)
+    if img_bgr.device.type == "cuda":
+        if _is_bgr(img_bgr):
+            lead, (h, w) = img_bgr.shape[:-3], img_bgr.shape[-3:-1]
+            images = img_bgr.reshape(-1, h, w, 3)
+        else:
+            lead, (h, w) = img_bgr.shape[:-2], img_bgr.shape[-2:]
+            images = bgr_to_gray_u8(img_bgr).reshape(-1, h, w)
+        ix, iy, r = harris_response_kernel(images, cfg)
+        ix, iy = ix.reshape(*lead, h, w), iy.reshape(*lead, h, w)
+    else:
+        count("n_harris_kernel_images", 0)
+        ix, iy, r = harris_response_plain(img_bgr, cfg)
+        h, w = ix.shape[-2:]
+        lead = ix.shape[:-2]
 
     threshold = torch.amax(r, dim=(-2, -1), keepdim=True) * cfg.thresh_ratio
     # strict 3x3 local max: R[i, j] == max of its 3x3 patch

@@ -7,7 +7,11 @@ cv2 parity rules (the JAX package's ``ops/gaussian.py``):
 
 The blur is k shifted multiply-adds per axis in tap order, vertical pass
 first — the JAX package's order — not ``conv1d``, whose summation order
-differs, so the pyramid stays bit-exact against the JAX package.
+differs, so the pyramid stays bit-exact against the JAX package.  It
+blurs the SIFT pyramid and Harris's 9x9 descriptor patches everywhere,
+and Harris's 21-tap structure products on the CPU only: on the card
+those are summed inside the kernel of ``csrc/harris_response.cu``, in
+this order and with these reflected borders (``models/harris.py``).
 """
 
 from __future__ import annotations

@@ -77,17 +77,21 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return device_profile(fn, reps, warmup)[0]
 
 
-def one_kernel_ms(fn, counter: str, reps: int = 20) -> float:
+def one_kernel_ms(fn, counter: str, reps: int = 20,
+                  launches: dict | None = None) -> float:
     """Device ms of one call of ``fn``, a call of the kernel wrapper that
-    counts its launches in ``kernels.LAUNCHES[counter]``, which must run
-    exactly one device kernel per call.  The launches come from the
+    counts its launches in ``launches[counter]`` (by default the SIFT
+    library's ``kernels.LAUNCHES``), which must run exactly one device
+    kernel per call.  The launches come from the
     wrapper's count, which must rise by one per call (the wrapper raises
     on a refused launch); the profiler must see one kernel name and no
     more of its launches than calls.  It may miss some of a session's
     launches, so the time is the mean over the launches it saw.  A second
     kernel, or a kernel launched twice a call, fails."""
-    from vfx_image_stitching_tpu_torch.models.sift import kernels as K
+    if launches is None:
+        from vfx_image_stitching_tpu_torch.models.sift import kernels as K
 
+        launches = K.LAUNCHES
     calls = 0
 
     def call():
@@ -95,9 +99,9 @@ def one_kernel_ms(fn, counter: str, reps: int = 20) -> float:
         calls += 1
         fn()
 
-    n0 = K.LAUNCHES[counter]
+    n0 = launches[counter]
     events = kernel_profile(call, reps)
-    launched = K.LAUNCHES[counter] - n0
+    launched = launches[counter] - n0
     seen = sum(n for n, _us in events.values())
     if launched != calls or len(events) != 1 or not 0 < seen <= reps:
         raise AssertionError(
